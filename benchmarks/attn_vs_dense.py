@@ -4,6 +4,7 @@ from vitrs_tpu import params as PRM
 from vitrs_tpu.config import get_config
 from vitrs_tpu.models import model as M
 from vitrs_tpu.ops import optimizer as opt
+from vitrs_tpu.utils import flops as F
 
 def make_step(cfg):
     def stepfn(p, m, v, x, y, i, lr):
@@ -30,8 +31,9 @@ def bench_step(cfg, B=64, n=10):
     return (time.perf_counter()-t0)/n
 
 base = get_config("vit-b-16").replace(dtype="bfloat16")
-for name, cfg in [("flash", base.replace(use_flash=True)),
+kind = jax.devices()[0].device_kind
+for name, cfg in [("fused", base.replace(use_flash=True)),
                   ("dense", base.replace(use_flash=False)),
-                  ("flash+remat", base.replace(use_flash=True, remat=True))]:
+                  ("fused+remat", base.replace(use_flash=True, remat=True))]:
     dt = bench_step(cfg)
-    print(f"{name}: {dt*1e3:.1f} ms/step  MFU {64*105.6e9/dt/197e12:.1%}")
+    print(f"{name}: {dt*1e3:.1f} ms/step  MFU {F.mfu(64 / dt, cfg, kind):.1%}")

@@ -31,12 +31,11 @@ def sync_g(r):
 t_g = timeit(gradf, params, x, y, sync=sync_g)
 print(f"fwd {t_f*1e3:.1f} ms | fwd+bwd {t_g*1e3:.1f} ms | bwd/fwd ratio {(t_g-t_f)/t_f:.2f}")
 # attention-only cost: model with 0-flops attention? approximate with identity attention
-import vitrs_tpu.ops.attention as ATT
-orig = ATT.attention
-ATT.attention = lambda qkv, nh, causal=True, quirks=False, use_flash=True: qkv[..., :qkv.shape[-1]//3]
+orig = M.attention
+M.attention = lambda qkv, nh, **kw: qkv[..., :qkv.shape[-1]//3]
 fwd2 = jax.jit(lambda p,x,y: M.loss_fn(p,x,y,cfg))
 t_f2 = timeit(fwd2, params, x, y)
 gradf2 = jax.jit(g_loss)
 t_g2 = timeit(gradf2, params, x, y, sync=sync_g)
-ATT.attention = orig
+M.attention = orig
 print(f"no-attn: fwd {t_f2*1e3:.1f} ms, fwd+bwd {t_g2*1e3:.1f} ms -> attention costs fwd {1e3*(t_f-t_f2):.1f} ms, train {1e3*(t_g-t_g2):.1f} ms")

@@ -59,10 +59,10 @@ def main():
         print(f"tokenized: {len(ids):,} tokens")
 
     import jax
+    from vitrs_tpu import backend
     from vitrs_tpu.train.loop import TrainConfig, train, evaluate_gpt
     from vitrs_tpu import checkpoint as C
 
-    dev = jax.devices()[0]
     total = args.chunks * args.chunk_steps
     curve = []
     for c in range(1, args.chunks + 1):
@@ -72,7 +72,7 @@ def main():
             lr=args.lr, warmup=100, weight_decay=0.1, clip_norm=1.0,
             log_every=50, ckpt_every=args.chunk_steps, eval_every=0,
             workdir=args.workdir, resume=True,
-            dtype="bfloat16" if dev.platform == "tpu" else "float32")
+            dtype=backend.compute_dtype())
         train(tc)
         step = c * args.chunk_steps
         ckpt = os.path.join(args.workdir, f"ckpt_{step:08d}.bin")

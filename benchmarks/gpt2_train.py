@@ -1,4 +1,4 @@
-"""GPT-2 124M training throughput on one TPU chip.
+"""GPT-2 124M training throughput on one GPU.
 
 The reference's own config (reference tests/vit_tests.rs:10-15:
 max_seq_len=1024, vocab=50257, L=12, NH=12, C=768). Measures tok/s and MFU
@@ -18,6 +18,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from vitrs_tpu import backend
 from vitrs_tpu import params as PRM
 from vitrs_tpu.config import get_config
 from vitrs_tpu.models import model as M
@@ -63,10 +64,8 @@ def main():
     args = ap.parse_args()
 
     dev = jax.devices()[0]
-    on_tpu = dev.platform == "tpu"
     cfg = get_config(args.preset).replace(
-        dtype="bfloat16" if on_tpu else "float32",
-        use_flash=on_tpu, max_seq_len=args.seq, remat=args.remat,
+        dtype=backend.compute_dtype(), max_seq_len=args.seq, remat=args.remat,
         window=args.window, num_kv_heads=args.kv_heads, pos_emb=args.pos_emb,
         num_experts=args.num_experts, scan_unroll=args.scan_unroll,
         **({"moe_top_k": args.moe_top_k} if args.num_experts else {}),

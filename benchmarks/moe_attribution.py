@@ -1,9 +1,7 @@
-"""MoE step-time attribution on one TPU chip (round-5 verdict #4).
+"""MoE step-time attribution on one GPU.
 
-The dense 124M runs 63.3% MFU; the 8-expert top-2 sparse step 56.7%
-sparse-MFU (BASELINE.md).  This harness attributes the gap with the same
-constant-substitution method as benchmarks/fwd_softmax_diag.py: time the
-full train step under ops/moe.py MOE_DIAG variants (wrong math, identical
+Attributes the sparse step's cost by constant substitution: time the full
+train step under ops/moe.py MOE_DIAG variants (wrong math, identical
 shapes/memory traffic):
 
     baseline     production routing + gather dispatch/combine
@@ -32,6 +30,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from vitrs_tpu import backend
 from vitrs_tpu import params as PRM
 from vitrs_tpu.config import get_config
 from vitrs_tpu.models import model as M
@@ -47,9 +46,7 @@ def main():
 
     dev = jax.devices()[0]
     cfg = get_config("gpt2-moe-8e").replace(
-        dtype="bfloat16" if dev.platform == "tpu" else "float32",
-        use_flash=dev.platform == "tpu",
-        moe_cap_factor=args.cap_factor)
+        dtype=backend.compute_dtype(), moe_cap_factor=args.cap_factor)
     B, T = args.batch, cfg.max_seq_len
     params = PRM.init_params(cfg, jax.random.PRNGKey(0))
     from vitrs_tpu.ops import adafactor as AF

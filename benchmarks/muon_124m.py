@@ -47,9 +47,9 @@ def main():
 
     import jax
     from vitrs_tpu import checkpoint as C
+    from vitrs_tpu import backend
     from vitrs_tpu.train.loop import TrainConfig, train, evaluate_gpt
 
-    dev = jax.devices()[0]
     results = {}
     for opt_name, lr, extra in (("adamw", 3e-4, {}),
                                 ("muon", 0.02, {"muon_adamw_lr": 6e-4})):
@@ -61,7 +61,7 @@ def main():
             clip_norm=1.0 if opt_name != "muon" else 0.0,
             log_every=100, ckpt_every=args.steps, eval_every=0,
             workdir=wd, resume=True, optimizer=opt_name,
-            dtype="bfloat16" if dev.platform == "tpu" else "float32",
+            dtype=backend.compute_dtype(),
             **extra)
         train(tc)
         ckpt = os.path.join(wd, f"ckpt_{args.steps:08d}.bin")

@@ -1,4 +1,4 @@
-"""Continuous-batching serving throughput (GPT-2 124M, one TPU chip).
+"""Continuous-batching serving throughput (GPT-2 124M, one GPU).
 
 Submits a Poisson-ish mix of prompt lengths and measures aggregate
 generated tok/s through serving_gen.GenerationEngine — the serving number

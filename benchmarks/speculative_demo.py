@@ -107,7 +107,7 @@ def main():
                                    f"target-greedy on cpu; diverged at "
                                    f"{diverge}")
         else:
-            # on TPU the batched verify forward and the stepwise decode are
+            # on the GPU the batched verify forward and the stepwise decode are
             # different XLA programs whose bf16 logits differ in low bits;
             # one argmax near-tie flip diverges the suffix permanently.
             # Require agreement well past the prompt, report the rest.

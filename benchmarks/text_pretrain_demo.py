@@ -113,7 +113,7 @@ def main():
                     max_len=min(256, cfg_l.max_seq_len), decode_chunk=16)
     if args.no_generate:
         return
-    prompts = args.prompt or ["def forward(", "# TPU", "import jax"]
+    prompts = args.prompt or ["def forward(", "# model", "import jax"]
     outs = te.generate(prompts, max_new=48, temperature=0.0,
                        echo_prompt=True)
     for t in outs:

@@ -1,4 +1,4 @@
-"""ViT training throughput on one TPU chip, parameterized by preset.
+"""ViT training throughput on one GPU, parameterized by preset.
 
 The ViT-family counterpart of gpt2_train.py: full fused train step
 (fwd + bwd + tree-form AdamW), remat selectable to measure the
@@ -20,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from vitrs_tpu import backend
 from vitrs_tpu import params as PRM
 from vitrs_tpu.config import get_config
 from vitrs_tpu.models import model as M
@@ -33,17 +34,15 @@ def main():
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--iters", type=int, default=20)
     ap.add_argument("--remat", action="store_true",
-                    help="selective policy (save flash out+lse + LN stats)")
+                    help="selective policy (save attention out + LN stats)")
     ap.add_argument("--remat-full", action="store_true",
                     help="blanket jax.checkpoint (the round-2 comparison)")
     args = ap.parse_args()
 
-    dev = jax.devices()[0]
-    on_tpu = dev.platform == "tpu"
     remat = "full" if args.remat_full else bool(args.remat)
-    cfg = get_config(args.preset).replace(
-        dtype="bfloat16" if on_tpu else "float32",
-        use_flash=on_tpu, remat=remat)
+    dev = jax.devices()[0]
+    cfg = get_config(args.preset).replace(dtype=backend.compute_dtype(),
+                                          remat=remat)
     B = args.batch
 
     key = jax.random.PRNGKey(0)

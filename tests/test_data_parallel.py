@@ -40,7 +40,7 @@ def test_dp_step_matches_single_device():
     flat_p = PRM.flatten_params(params, CFG)
     flat_g = PRM.flatten_params(grads, CFG)
     n = flat_p.shape[0]
-    want_p, want_m, want_v = opt.adamw_step_jnp(
+    want_p, want_m, want_v = opt.adamw_step(
         flat_p, flat_g, jnp.zeros(n), jnp.zeros(n),
         jnp.asarray(1, jnp.int32), jnp.asarray(1e-3), weight_decay=0.01)
 

@@ -132,9 +132,9 @@ def test_gqa_selective_remat_grads_match_plain():
 
 @pytest.mark.parametrize("causal", [True, False])
 def test_gqa_attn_branch_interpret_flash_vs_dense(causal):
-    """The selective-remat flash branch under GQA (interpret-mode Pallas):
-    forward + all 7 grads vs the dense GQA oracle — exercises the
-    activation-level expansion in fwd and the group-sum in bwd."""
+    """The selective-remat branch under GQA (K/V at kv_heads heads in the
+    attention op): forward + all 7 grads vs the dense GQA oracle, whose
+    expansion's transpose is the group sum."""
     C, H, KH = 32, 2, 1
     D = C // H
     kvd = KH * D
@@ -152,7 +152,7 @@ def test_gqa_attn_branch_interpret_flash_vs_dense(causal):
     )
 
     def f_flash(*a):
-        return jnp.sum(jnp.sin(S.attn_branch(*a, H, causal, True, True, KH)))
+        return jnp.sum(jnp.sin(S.attn_branch(*a, H, causal, True, KH)))
 
     def f_ref(*a):
         return jnp.sum(jnp.sin(S._attn_ref(*a, num_heads=H, causal=causal,
@@ -291,76 +291,3 @@ def test_split_gqa_widths():
     q, k, v = split_gqa(qkv, cfg.num_heads, cfg.kv_heads)
     assert q.shape[-1] == cfg.channels
     assert k.shape[-1] == v.shape[-1] == cfg.kv_dim
-
-
-def test_expand_qkv_weight_equals_activation_expansion():
-    """linear(x, expand_qkv_weight(w)) == expand_packed(linear(x, w)) — the
-    weight-level GQA expansion the training path now uses (no (B,T,2C)
-    activation round-trip), exact for any geometry; and the grad transpose
-    (reduce_qkv_weight_grad) round-trips a synthetic expanded grad."""
-    import numpy as np
-    from vitrs_tpu.ops.attention import (expand_packed, expand_qkv_weight,
-                                         reduce_qkv_weight_grad)
-    from vitrs_tpu.ops import basic
-    rng = np.random.default_rng(11)
-    for H, KH, D, L in ((4, 2, 8, None), (6, 1, 4, None), (4, 2, 8, 3)):
-        C, kvd = H * D, KH * D
-        lead = () if L is None else (L,)
-        w = jnp.asarray(rng.standard_normal(lead + (C + 2 * kvd, C),
-                                            dtype=np.float32))
-        b = jnp.asarray(rng.standard_normal(lead + (C + 2 * kvd,),
-                                            dtype=np.float32))
-        we, be = expand_qkv_weight(w, b, H, KH)
-        assert we.shape == lead + (3 * C, C) and be.shape == lead + (3 * C,)
-        if L is None:
-            x = jnp.asarray(rng.standard_normal((2, 5, C), dtype=np.float32))
-            got = basic.linear(x, we, be)
-            want = expand_packed(basic.linear(x, w, b), H, KH)
-            np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                       rtol=1e-6, atol=1e-6)
-        # reduce(expand) on a weight-shaped grad == G * original K/V rows
-        G = H // KH
-        dw, db = reduce_qkv_weight_grad(we, be, H, KH)
-        np.testing.assert_allclose(np.asarray(dw[..., :C, :]),
-                                   np.asarray(w[..., :C, :]))
-        np.testing.assert_allclose(np.asarray(dw[..., C:, :]),
-                                   G * np.asarray(w[..., C:, :]), rtol=1e-6)
-        np.testing.assert_allclose(np.asarray(db[..., C:]),
-                                   G * np.asarray(b[..., C:]), rtol=1e-6)
-
-
-def test_expand_qkv_weight_autodiff_matches_activation_path():
-    """Full loss-level check: gradients THROUGH the weight expansion equal
-    gradients through the activation expansion (both reach the same
-    canonical GQA weight)."""
-    import numpy as np
-    from vitrs_tpu.ops.attention import (attention_gqa, attention,
-                                         expand_qkv_weight)
-    from vitrs_tpu.ops import basic
-    rng = np.random.default_rng(12)
-    H, KH, D = 4, 2, 8
-    C, kvd = H * D, KH * D
-    x = jnp.asarray(rng.standard_normal((2, 6, C), dtype=np.float32))
-    w = jnp.asarray(0.1 * rng.standard_normal((C + 2 * kvd, C),
-                                              dtype=np.float32))
-    b = jnp.asarray(0.1 * rng.standard_normal((C + 2 * kvd,),
-                                              dtype=np.float32))
-
-    def f_act(w, b):
-        qkv = basic.linear(x, w, b)
-        return jnp.sum(jnp.sin(attention_gqa(qkv, H, KH, causal=True,
-                                             use_flash=False)))
-
-    def f_wt(w, b):
-        we, be = expand_qkv_weight(w, b, H, KH)
-        qkv = basic.linear(x, we, be)
-        return jnp.sum(jnp.sin(attention(qkv, H, causal=True,
-                                         use_flash=False)))
-
-    np.testing.assert_allclose(float(f_wt(w, b)), float(f_act(w, b)),
-                               rtol=1e-6)
-    ga = jax.grad(f_act, argnums=(0, 1))(w, b)
-    gw = jax.grad(f_wt, argnums=(0, 1))(w, b)
-    for a_, b_ in zip(ga, gw):
-        np.testing.assert_allclose(np.asarray(a_), np.asarray(b_),
-                                   rtol=2e-5, atol=1e-6)

@@ -118,7 +118,7 @@ def test_ring_is_sharded_over_sequence():
 
 
 def test_dp_cp_gqa_small_kv_ring_grads_match_single_device():
-    """GQA through the ring: only the KH-head K/V blocks rotate (ICI traffic
+    """GQA through the ring: only the KH-head K/V blocks rotate (ring traffic
     / group size, fwd AND bwd) with per-step local expansion — the dp x cp
     GRADIENTS must match the single-device model.  (Gradients, not
     post-Adam params: at step 1 the update is ±lr·sign(g), which flips on

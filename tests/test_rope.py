@@ -84,9 +84,8 @@ def test_rope_remat_grads_match_plain(kv_heads):
 
 @pytest.mark.parametrize("kv_heads", [0, 2])
 def test_rope_attn_branch_interpret_flash_vs_dense(kv_heads):
-    """Selective-remat flash branch with rope (interpret-mode Pallas):
-    forward + grads vs the dense oracle — pins the in-branch rotation and
-    the inverse-rotation VJP."""
+    """Selective-remat branch with rope: forward + grads vs the dense
+    oracle — pins the in-branch rotation and its inverse-rotation VJP."""
     C, H = 32, 4
     D = C // H
     kvd = (kv_heads or H) * D
@@ -104,8 +103,8 @@ def test_rope_attn_branch_interpret_flash_vs_dense(kv_heads):
     )
 
     def f_flash(*a):
-        return jnp.sum(jnp.sin(S.attn_branch(*a, H, True, True, True,
-                                             kv_heads, True)))
+        return jnp.sum(jnp.sin(S.attn_branch(*a, H, True, True, kv_heads,
+                                             True)))
 
     def f_ref(*a):
         return jnp.sum(jnp.sin(S._attn_ref(*a, num_heads=H, causal=True,

@@ -1,6 +1,6 @@
 """Selective rematerialization (models/selective.py): gradient parity vs the
-plain path, the interpret-mode flash branches vs a dense jnp oracle, and the
-phantom-head padding that makes odd head counts (GPT-2 1.5B: 25) tileable."""
+plain path, the branches vs a dense jnp oracle, what the attention branch
+saves, and odd head counts (GPT-2 1.5B: 25)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,7 +12,6 @@ from vitrs_tpu.config import get_config
 from vitrs_tpu.models import model as M
 from vitrs_tpu.models import selective as S
 from vitrs_tpu.ops import basic
-from vitrs_tpu.ops import flash_attention as FA
 
 
 def _grads_close(g1, g2, rtol=2e-4, atol=2e-5):
@@ -56,7 +55,7 @@ def test_selective_remat_grads_match_plain(mode):
 
 
 # ---------------------------------------------------------------------------
-# branch-level: interpret-mode flash branches vs dense jnp oracle
+# branch-level: the branches (fused attention op) vs dense jnp oracle
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("causal,T", [(True, 16), (False, 17)])
@@ -119,65 +118,57 @@ def test_mlp_branch_grads_match_autodiff():
 
 
 # ---------------------------------------------------------------------------
-# phantom-head padding (odd head counts, advisor r2 #2)
+# what the attention branch keeps, and odd head counts
 # ---------------------------------------------------------------------------
 
-def test_padded_num_heads():
-    assert FA.padded_num_heads(12, 64) == 12        # already supported
-    assert FA.padded_num_heads(25, 64) == 26        # GPT-2 1.5B
-    assert FA.padded_num_heads(3, 64) == 4
-    assert FA.padded_num_heads(5, 128) == 5         # D >= LANES: any count
-    assert FA.padded_num_heads(2, 48) is None       # D not a lane divisor
+def test_attn_branch_saves_attention_output_not_scores(capsys):
+    """The checkpoint policy keeps the attention output and the LN stats
+    besides the inputs; no qkv activation and no (B, H, T, T) score tensor
+    is saved."""
+    from jax.ad_checkpoint import print_saved_residuals
+    B, T, C, H = 2, 16, 32, 2
+    rng = np.random.default_rng(5)
+    x = jnp.asarray(rng.standard_normal((B, T, C), dtype=np.float32))
+    ws = [jnp.asarray(rng.standard_normal(s, dtype=np.float32) * 0.1)
+          for s in ((C,), (C,), (3 * C, C), (3 * C,), (C, C), (C,))]
+
+    def f(x, *w):
+        return jnp.sum(S.attn_branch(x, *w, H, True))
+
+    print_saved_residuals(f, x, *ws)
+    saved = [ln.split()[0] for ln in capsys.readouterr().out.splitlines()
+             if "from the argument" not in ln]
+    assert sorted(saved) == ["f32[2,16,32]", "f32[2,16]", "f32[2,16]"], saved
 
 
 def test_phantom_heads_match_dense_fwd_bwd():
-    """flash_attention_qkv with 3 heads of 64 (needs padding to 4) must equal
-    dense attention exactly on values and grads — interpret mode on CPU."""
+    """3 heads of 64 (an odd head count) through the attention op equal
+    dense attention on values and grads."""
+    from vitrs_tpu.ops.attention import attention
     B, T, H, D = 2, 16, 3, 64
     C = H * D
     rng = np.random.default_rng(3)
     qkv = jnp.asarray(rng.standard_normal((B, T, 3 * C), dtype=np.float32))
 
-    def f_flash(q):
-        return jnp.sum(jnp.cos(FA.flash_attention_qkv(q, H, causal=True,
-                                                      interpret=True)))
+    def f_fused(q):
+        return jnp.sum(jnp.cos(attention(q, H, causal=True)))
 
     def f_dense(q):
         out, _ = basic.attention_dense(q, H, causal=True)
         return jnp.sum(jnp.cos(out))
 
-    np.testing.assert_allclose(float(f_flash(qkv)), float(f_dense(qkv)),
+    np.testing.assert_allclose(float(f_fused(qkv)), float(f_dense(qkv)),
                                rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(jax.grad(f_flash)(qkv)),
+    np.testing.assert_allclose(np.asarray(jax.grad(f_fused)(qkv)),
                                np.asarray(jax.grad(f_dense)(qkv)),
                                rtol=3e-4, atol=3e-5)
 
 
-def test_fused_qkv_attention_phantom_heads():
-    """The fused projection+attention op with 3 heads (padded to 4): values
-    and all grads match the plain dense composition."""
-    from vitrs_tpu.ops.fused_qkv_attention import qkv_attention
-    B, T, H, D = 2, 12, 3, 64
-    C = H * D
-    rng = np.random.default_rng(4)
-    ln1 = jnp.asarray(rng.standard_normal((B, T, C), dtype=np.float32))
-    qkvw = jnp.asarray(rng.standard_normal((3 * C, C), dtype=np.float32) * 0.1)
-    qkvb = jnp.asarray(rng.standard_normal(3 * C, dtype=np.float32) * 0.1)
-
-    def f_fused(a, w, b):
-        return jnp.sum(jnp.sin(qkv_attention(a, w, b, H, True, True)))
-
-    def f_ref(a, w, b):
-        out, _ = basic.attention_dense(basic.linear(a, w, b), H, causal=True)
-        return jnp.sum(jnp.sin(out))
-
-    np.testing.assert_allclose(float(f_fused(ln1, qkvw, qkvb)),
-                               float(f_ref(ln1, qkvw, qkvb)), rtol=2e-5)
-    _grads_close(jax.grad(f_fused, argnums=(0, 1, 2))(ln1, qkvw, qkvb),
-                 jax.grad(f_ref, argnums=(0, 1, 2))(ln1, qkvw, qkvb),
-                 rtol=3e-4, atol=3e-5)
-
-
-def test_1558m_preset_head_geometry_is_tileable():
+def test_1558m_head_geometry_takes_cudnn():
+    """GPT-2 1.5B's 25 heads of 64 need no padding: the rule sends the
+    bf16 shape to cuDNN on a GPU."""
+    from vitrs_tpu import backend
     cfg = get_config("gpt2-1558m")
-    assert FA.padded_num_heads(cfg.num_heads, cfg.head_size) == 26
+    assert cfg.num_heads == 25 and cfg.head_size == 64
+    assert backend.attention_implementation(
+        "gpu", "bfloat16", cfg.head_size, cfg.max_seq_len) == "cudnn"

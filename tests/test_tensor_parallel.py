@@ -278,10 +278,10 @@ def _vp_data(B=8, seed=0, cfg=None):
 
 
 def test_vp_param_round_trip():
-    from vitrs_tpu.ops import fused_ce
+    from vitrs_tpu.ops import basic
     params = PRM.init_params(VP_CFG, jax.random.PRNGKey(7))
     tpp = tp.to_tp_params(params, VP_CFG, vocab_parallel=True)
-    assert tpp["wte"].shape[0] == fused_ce.pad_vocab(VP_CFG.vocab_size)
+    assert tpp["wte"].shape[0] == basic.pad_vocab(VP_CFG.vocab_size)
     back = tp.from_tp_params(tpp, VP_CFG, vocab_parallel=True)
     for k in params:
         np.testing.assert_array_equal(np.asarray(params[k]),
@@ -370,12 +370,12 @@ def test_vp_sp_loss_and_grads_match_single_device():
 
 
 def test_vp_wte_sharded_and_training_decreases_loss():
-    from vitrs_tpu.ops import fused_ce
+    from vitrs_tpu.ops import basic
     mesh = tp.make_mesh_2d(dp=4, tp=2)
     params = PRM.init_params(VP_CFG, jax.random.PRNGKey(10))
     x, y = _vp_data(seed=10)
     tpp = tp.place_tp_params(params, VP_CFG, mesh, vocab_parallel=True)
-    Vp = fused_ce.pad_vocab(VP_CFG.vocab_size)
+    Vp = basic.pad_vocab(VP_CFG.vocab_size)
     assert ({s.data.shape for s in tpp["wte"].addressable_shards}
             == {(Vp // 2, VP_CFG.channels)})
     step_fn = tp.make_tp_train_step(VP_CFG, mesh, vocab_parallel=True)

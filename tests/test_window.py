@@ -1,10 +1,9 @@
-"""Sliding-window attention (config.window, flash kernel band predicates).
+"""Sliding-window attention (config.window).
 
 Beyond-reference (the reference is full-causal only, rusty_vit.rs:529-537).
 Ground truth is the dense windowed mask (tril minus the sub-band triangle),
-itself pinned against a brute-force python loop.  Flash coverage runs the
-Pallas kernels in interpret mode at block sizes that make the band cross
-tile boundaries, for BOTH backward decompositions.
+itself pinned against a brute-force python loop.  The fused attention op
+(local_window_size=(W-1, 0)) is held to it on values and gradients.
 """
 
 import jax
@@ -17,11 +16,10 @@ from vitrs_tpu.config import get_config
 from vitrs_tpu.models import generate as G
 from vitrs_tpu.models import model as M
 from vitrs_tpu.ops import basic
-from vitrs_tpu.ops import flash_attention as fa
-from vitrs_tpu.ops.flash_attention import flash_attention_qkv
+from vitrs_tpu.ops.attention import attention
 from vitrs_tpu.utils import flops
 
-NH, C = 2, 128          # head_dim 64 -> the Pallas kernels actually run
+NH, C = 2, 128          # head_dim 64, the models' own
 
 
 def _qkv(B, T, C, seed=0):
@@ -43,13 +41,10 @@ def test_dense_window_matches_bruteforce():
     np.testing.assert_allclose(att.sum(-1), 1.0, rtol=1e-6)
 
 
-@pytest.mark.parametrize("T,W,bq", [(256, 96, 64),   # band crosses tiles
-                                    (300, 128, 128),  # + padded tail tile
-                                    (128, 40, 128)])  # single-tile path
-def test_flash_window_forward_matches_dense(T, W, bq):
+@pytest.mark.parametrize("T,W", [(256, 96), (300, 128), (128, 40)])
+def test_flash_window_forward_matches_dense(T, W):
     qkv = _qkv(1, T, C, seed=T + W)
-    got = flash_attention_qkv(qkv, NH, causal=True, block_q=bq, block_k=bq,
-                              interpret=True, window=W)
+    got = attention(qkv, NH, causal=True, window=W)
     want, _ = basic.attention_dense(qkv, NH, causal=True, window=W)
     np.testing.assert_allclose(np.asarray(got), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
@@ -57,19 +52,21 @@ def test_flash_window_forward_matches_dense(T, W, bq):
 
 @pytest.mark.parametrize("combined", [True, False])
 @pytest.mark.parametrize("T,W", [(256, 96), (300, 150)])
-def test_flash_window_grads_match_dense(T, W, combined, monkeypatch):
-    if not combined:
-        monkeypatch.setattr(fa, "COMBINED_BWD_VMEM_LIMIT", 0)
-    qkv = _qkv(1, T, C, seed=7)
+def test_flash_window_grads_match_dense(T, W, combined):
+    """combined=False runs the GQA form (K/V at one head) against the
+    dense reference over expanded K/V."""
+    kv_heads = NH if combined else 1
+    D = C // NH
+    qkv = _qkv(1, T, C, seed=7)[..., :C + 2 * kv_heads * D]
 
     def lf(x):
-        return jnp.sum(jnp.sin(flash_attention_qkv(
-            x, NH, causal=True, block_q=64, block_k=64, interpret=True,
-            window=W)))
+        return jnp.sum(jnp.sin(attention(x, NH, causal=True, window=W,
+                                         kv_heads=kv_heads)))
 
     def ld(x):
+        from vitrs_tpu.ops.attention import expand_packed
         return jnp.sum(jnp.sin(basic.attention_dense(
-            x, NH, causal=True, window=W)[0]))
+            expand_packed(x, NH, kv_heads), NH, causal=True, window=W)[0]))
 
     np.testing.assert_allclose(float(lf(qkv)), float(ld(qkv)), rtol=2e-5)
     np.testing.assert_allclose(np.asarray(jax.grad(lf)(qkv)),
@@ -77,8 +74,9 @@ def test_flash_window_grads_match_dense(T, W, combined, monkeypatch):
                                rtol=3e-4, atol=3e-5)
 
 
-def test_fused_qkv_attention_window_interpret():
-    from vitrs_tpu.ops.fused_qkv_attention import qkv_attention
+def test_window_projection_and_attention_grads():
+    """Projection + windowed attention through autodiff: all three grads
+    match the dense composition."""
     rng = np.random.default_rng(3)
     T, W = 256, 100
     ln1 = jnp.asarray(rng.standard_normal((1, T, C), dtype=np.float32))
@@ -86,7 +84,8 @@ def test_fused_qkv_attention_window_interpret():
     qkvb = jnp.asarray(rng.standard_normal(3 * C, dtype=np.float32) * 0.1)
 
     def lf(x, w, b):
-        return jnp.sum(jnp.sin(qkv_attention(x, w, b, NH, True, True, W)))
+        return jnp.sum(jnp.sin(attention(basic.linear(x, w, b), NH,
+                                         causal=True, window=W)))
 
     def ld(x, w, b):
         qkv = basic.linear(x, w, b)
@@ -118,8 +117,8 @@ def test_selective_attn_branch_window_interpret():
     )
 
     def lf(*a):
-        return jnp.sum(jnp.sin(S.attn_branch(*a, NH, True, True, True,
-                                             0, False, W)))
+        return jnp.sum(jnp.sin(S.attn_branch(*a, NH, True, True, 0,
+                                             False, W)))
 
     def lr(*a):
         return jnp.sum(jnp.sin(S._attn_ref(*a, num_heads=NH, causal=True,

@@ -1,9 +1,10 @@
-"""vitrs_tpu — a TPU-native Vision Transformer framework.
+"""vitrs_tpu — a JAX Vision Transformer / GPT framework.
 
-A ground-up JAX/XLA/Pallas rebuild with the capabilities of
-Simon-Kotchou/ViT.rs (the llm.c-inspired Rust transformer), designed for TPU:
-MXU-shaped matmuls, Pallas flash attention, fused AdamW, shard_map data
-parallelism over ICI, and a host-side native data pipeline.
+A ground-up JAX/XLA rebuild with the capabilities of Simon-Kotchou/ViT.rs
+(the llm.c-inspired Rust transformer), run on NVIDIA GPUs: bf16 matmuls on
+the tensor cores, cuDNN fused attention, shard_map data / tensor / pipeline /
+expert parallelism, and a host-side native data pipeline.  The package name
+is an identifier, not a statement about the hardware.
 """
 
 from .config import ViTConfig, get_config, PRESETS

@@ -44,11 +44,11 @@ def main():
                    help="force the CPU backend")
     args = p.parse_args()
 
-    if args.cpu:
-        import jax
-        jax.config.update("jax_platforms", "cpu")
-
     import jax
+    if args.cpu:
+        jax.config.update("jax_platforms", "cpu")
+    from vitrs_tpu import backend
+    backend.enable_compile_cache()
     import jax.numpy as jnp
     import numpy as np
 

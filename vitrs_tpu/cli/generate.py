@@ -42,12 +42,13 @@ def main():
                    help="decode ticks per host sync")
     p.add_argument("--echo", action="store_true", help="echo prompts")
     p.add_argument("--dtype", default=None,
-                   help="float32|bfloat16 (default: bf16 on TPU)")
+                   help="float32|bfloat16 (default: bf16 on an "
+                        "accelerator, fp32 on the CPU)")
     args = p.parse_args()
 
     import jax
     import numpy as np
-    from vitrs_tpu import ViT, get_config
+    from vitrs_tpu import ViT, backend, get_config
     from vitrs_tpu.data.tokenizer import ByteBPETokenizer
     from vitrs_tpu.serving_gen import TextEngine
 
@@ -59,8 +60,8 @@ def main():
     else:
         tok = ByteBPETokenizer()          # byte fallback: always works
 
-    dtype = args.dtype or ("bfloat16" if jax.devices()[0].platform == "tpu"
-                           else "float32")
+    backend.enable_compile_cache()
+    dtype = args.dtype or backend.compute_dtype()
     if args.ckpt:
         model = ViT.build_from_checkpoint(args.ckpt, dtype=dtype)
     else:

@@ -23,15 +23,17 @@ def main():
                    choices=["float32", "bfloat16"])
     p.add_argument("--quant", default="none", choices=["none", "w8", "w8a8"],
                    help="int8 post-training quantization: w8 = weight-only "
-                        "(bandwidth-bound), w8a8 = int8 MXU (compute-bound)")
+                        "(bandwidth-bound), w8a8 = int8 matmuls "
+                        "(compute-bound)")
     args = p.parse_args()
 
     import jax
     import jax.numpy as jnp
     import numpy as np
-    from vitrs_tpu import ViT, get_config
+    from vitrs_tpu import ViT, backend, get_config
     from vitrs_tpu.utils import flops as F
 
+    backend.enable_compile_cache()
     if args.ckpt:
         model = ViT.build_from_checkpoint(args.ckpt, dtype=args.dtype)
     else:
@@ -53,12 +55,11 @@ def main():
         fwd = model._jit_logits
         model_params = model.params
 
-    logits = fwd(model_params, x)
-    _ = float(logits[0, 0])          # compile + sync
+    jax.block_until_ready(fwd(model_params, x))      # compile
     t0 = time.perf_counter()
     for _ in range(args.steps):
         logits = fwd(model_params, x)
-    _ = float(logits[0, 0])
+    jax.block_until_ready(logits)
     dt = (time.perf_counter() - t0) / args.steps
 
     ips = B / dt
@@ -72,7 +73,7 @@ def main():
         "unit": "images/sec/chip",
         "batch": B,
         "latency_ms": round(dt * 1e3, 2),
-        "mfu": round(mfu, 4),
+        "mfu": None if mfu is None else round(mfu, 4),
         "device": dev.device_kind,
     }))
 

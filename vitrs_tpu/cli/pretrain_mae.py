@@ -36,8 +36,11 @@ def main():
     import jax
     import jax.numpy as jnp
     import numpy as np
+    from vitrs_tpu import backend
     from vitrs_tpu import checkpoint as C
     from vitrs_tpu import checkpoint_tree as CT
+
+    backend.enable_compile_cache()
     from vitrs_tpu.config import get_config
     from vitrs_tpu.data import datasets as D
     from vitrs_tpu.data.prefetch import DevicePrefetcher

@@ -1,7 +1,7 @@
 """Model configuration.
 
 The reference stores its config in 5 fields decoded from the checkpoint header
-(/root/reference/rusty_vit.rs:9-16, train_vit.rs:56-63): max_seq_len, vocab_size,
+(rusty_vit.rs:9-16, train_vit.rs:56-63): max_seq_len, vocab_size,
 num_layers, num_heads, channels.  We keep those five verbatim (the checkpoint header
 remains the source of truth on load, see checkpoint.py) and add the vision-front-end
 fields the reference names but never implements (its `encoder_forward` is called but
@@ -60,21 +60,19 @@ class ViTConfig:
     dtype: str = "float32"            # compute dtype for activations ("float32"|"bfloat16")
     param_dtype: str = "float32"      # storage dtype for params
     quirks: bool = False              # reproduce reference-as-written math (G5/G6/G11)
-    use_flash: bool = True            # Pallas flash attention on TPU (fallback: jnp)
+    use_flash: bool = True            # fused attention (ops/attention.py);
+                                      # False = the dense reference path
     remat: object = False             # activation checkpointing: False |
-                                      # True = selective (save flash out+lse
-                                      # + LN stats; recompute qkv/MLP only —
+                                      # True = selective (save attention out
+                                      # + LN stats; recompute qkv/MLP —
                                       # models/selective.py) | "full" =
                                       # blanket jax.checkpoint incl. attention
-    scan_unroll: int = 0              # 0 = fully unroll the layer scan (fastest
-                                      # backward: no per-layer dynamic-update-slice
-                                      # of the stacked grads); N>0 = unroll factor
+    scan_unroll: int = 0              # 0 = fully unroll the layer scan (no
+                                      # per-layer dynamic-update-slice of the
+                                      # stacked grads); N>0 = unroll factor
     window: int = 0                   # sliding-window attention (gpt mode,
                                       # causal): query t attends keys in
                                       # (t-window, t].  0 = full attention.
-                                      # Tiles outside the band are skipped in
-                                      # the flash kernels fwd AND bwd, so
-                                      # attention compute is O(T·window).
     pos_emb: str = "learned"          # positional scheme: "learned" (the
                                       # reference's wpe table, rusty_vit.rs:107)
                                       # | "rope" (rotary — relative positions,

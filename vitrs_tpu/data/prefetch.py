@@ -3,7 +3,7 @@ image decode/augment pipeline that feeds HBM via device prefetch').
 
 A background thread runs the (native) augment pipeline and issues
 jax.device_put ahead of consumption, so H2D transfer and host augment overlap
-with the TPU step.  Queue depth 2 = classic double buffering."""
+with the device step.  Queue depth 2 = classic double buffering."""
 
 from __future__ import annotations
 

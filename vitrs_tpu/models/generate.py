@@ -18,7 +18,6 @@ traffic shrink by num_heads/kv_heads, which is the point of GQA serving.
 from __future__ import annotations
 
 import functools
-import os
 from typing import Dict
 
 import jax
@@ -28,31 +27,6 @@ from ..config import ViTConfig
 from ..ops import basic
 from ..ops.rope import rope_qk
 from . import model as M
-
-
-# Tests force the rectangular continuation-prefill kernel in Pallas
-# interpret mode on the CPU backend (the flash-vs-dense convention of
-# test_flash_attention.py, at the integrated generate() level).
-_FLASH_CONT_INTERPRET = os.environ.get("VITRS_FLASH_CONT_INTERPRET") == "1"
-
-
-def _flash_cont_ok(cfg: ViTConfig, Tmax: int) -> bool:
-    """Whether the rectangular flash kernel can serve a continuation chunk
-    against this cache: tileable geometry, block-aligned cache length
-    (generate() rounds the allocation up when chunking), and a backend that
-    runs Mosaic (or forced interpret mode).  VITRS_NO_FLASH_CONT=1 forces
-    the dense cache form (A/B benchmarking)."""
-    if os.environ.get("VITRS_NO_FLASH_CONT") == "1":
-        return False
-    from ..ops.flash_prefill import PREFILL_BLOCK, supports_prefill
-    if not supports_prefill(cfg.num_heads, cfg.kv_heads, cfg.head_size):
-        return False
-    if Tmax % PREFILL_BLOCK != 0:
-        return False
-    if _FLASH_CONT_INTERPRET:
-        return True
-    from ..ops.attention import _flash_available
-    return _flash_available()
 
 
 def quantize_kv(x: jax.Array, num_heads: int):
@@ -186,49 +160,19 @@ def _block_with_kv(x, p, cfg, k_cache, v_cache, pos):
 
     # attention of q against the cache, causal w.r.t. absolute positions.
     # Fresh-prompt prefill (static pos == 0, S > 1) is plain causal
-    # SELF-attention over the prompt — route it through the fused flash
-    # path instead of the dense cache form, whose (S, Tmax) score tensor is
-    # O(S·Tmax) memory (1.5 GB/layer at S=512 against an 8K cache; the
-    # long-context serving wall).  Cache slots ≥ S hold nothing the causal
-    # mask would admit, so the math is identical.  int8 caches take this
-    # path too: the prefill attends with the EXACT k/v (the stored history
-    # stays quantized for decode) — strictly better numerics than the old
-    # dense form's quantize-dequantize round trip, within the mode's
-    # tolerance contract (tests/test_serving_depth.py).
-    flash_prefill = (isinstance(pos, int) and pos == 0 and S > 1
-                     and not cfg.quirks)
-    flash_cont = (isinstance(pos, int) and pos > 0 and S > 1
-                  and not cfg.quirks and cfg.use_flash
-                  and _flash_cont_ok(cfg, Tmax))
-    if flash_prefill:
-        from ..ops import attention as ATT
-        if KH == NH:
-            packed = jnp.concatenate([q, k, v], axis=-1)
-            atty = ATT.attention(packed, NH, causal=True,
-                                 use_flash=cfg.use_flash,
-                                 window=cfg.window, rope=False)
-        else:
-            packed = jnp.concatenate([q, k, v], axis=-1)
-            atty = ATT.attention_gqa(packed, NH, KH, causal=True,
-                                     use_flash=cfg.use_flash,
-                                     window=cfg.window)
-    elif flash_cont:
-        # CONTINUATION chunk (pos > 0): S queries against the filled cache
-        # prefix — the rectangular flash kernel streams KV tiles up to the
-        # chunk's causal frontier instead of materializing the dense
-        # (B, NH, S, Tmax) score tensor (ops/flash_prefill.py).  q/k are
-        # already rope-rotated at absolute positions above; int8 caches
-        # dequantize to the flat packed layout first (same values decode
-        # sees — the dense branch's kh/vh dequant, flattened).
-        from ..ops.flash_prefill import flash_prefill_qkv
-        if int8_cache:
-            kf = kh.transpose(0, 2, 1, 3).reshape(B, Tmax, KH * D)
-            vf = vh.transpose(0, 2, 1, 3).reshape(B, Tmax, KH * D)
-        else:
-            kf, vf = k_cache, v_cache
-        atty = flash_prefill_qkv(
-            q, kf.astype(x.dtype), vf.astype(x.dtype), NH, KH, pos,
-            window=cfg.window, interpret=_FLASH_CONT_INTERPRET)
+    # SELF-attention over the prompt — route it through the attention op
+    # (ops/attention.py) instead of the dense cache form, whose (S, Tmax)
+    # score tensor is O(S·Tmax) memory.  Cache slots ≥ S hold nothing the
+    # causal mask would admit, so the math is identical.  int8 caches take
+    # this path too: the prefill attends with the EXACT k/v (the stored
+    # history stays quantized for decode), within the mode's tolerance
+    # contract (tests/test_serving_depth.py).  Continuation chunks
+    # (pos > 0) and decode use the dense cache form.
+    if isinstance(pos, int) and pos == 0 and S > 1 and not cfg.quirks:
+        from ..ops.attention import attention
+        atty = attention(jnp.concatenate([q, k, v], axis=-1), NH,
+                         causal=True, use_flash=cfg.use_flash,
+                         window=cfg.window, kv_heads=KH)
     else:
         qh = q.reshape(B, S, NH, D).transpose(0, 2, 1, 3)   # (B, NH, S, D)
         q_pos = pos + jnp.arange(S)[:, None]                # (S, 1)
@@ -334,20 +278,12 @@ def generate(params: Dict, prompt: jax.Array, cfg: ViTConfig, max_new: int,
     prefill_chunk > 0 runs the prefill in fixed-size segments through the
     same cache API: a whole-prompt prefill materializes (B, T0, V) logits —
     6.4 GB at B=8, T0≈8K, V=50304 — while chunks keep it at
-    (B, chunk, V).  T0 must divide the chunk; the last chunk's logits seed
+    (B, chunk, V).  prefill_chunk must divide T0; the last chunk's logits seed
     the first sampled token, so the math is identical."""
     B, T0 = prompt.shape
     Tmax = T0 + max_new
     assert Tmax <= cfg.max_seq_len
-    cache_len = Tmax
-    if prefill_chunk and T0 > prefill_chunk:
-        # round the cache up to the rectangular kernel's tile so every
-        # continuation chunk rides the flash path (_flash_cont_ok); the
-        # tail slots are never read (causal frontier < Tmax <= cache_len)
-        from ..ops.flash_prefill import PREFILL_BLOCK
-        cache_len = ((Tmax + PREFILL_BLOCK - 1) // PREFILL_BLOCK
-                     * PREFILL_BLOCK)
-    caches = init_kv_cache(cfg, B, cache_len, int8=kv_int8)
+    caches = init_kv_cache(cfg, B, Tmax, int8=kv_int8)
     key, first_key = jax.random.split(key)
     if prefill_chunk and T0 > prefill_chunk:
         assert T0 % prefill_chunk == 0, (T0, prefill_chunk)
@@ -357,8 +293,7 @@ def generate(params: Dict, prompt: jax.Array, cfg: ViTConfig, max_new: int,
                 last_only=True)
     else:
         # last_only: sampling needs only the final position's logits, so
-        # the (B, T0, V) head output never materializes; with the flash
-        # prefill in _block_with_kv, a whole 8K prompt prefills directly
+        # the (B, T0, V) head output never materializes
         logits, caches = forward_with_cache(params, prompt, caches, 0, cfg,
                                             last_only=True)
     first = _sample(logits[:, -1, :], first_key, temperature, top_k, top_p)
@@ -664,9 +599,8 @@ def prefill_into_slots(params: Dict, prompts: jax.Array, caches, slots,
                        cfg: ViTConfig):
     """Coalesced prefill: K same-bucket prompts through the stack in ONE
     dispatch, scattering K/V into K slot rows (serving_gen batches admission
-    by bucket — on a network-attached TPU this collapses the per-request
-    prefill RPCs that dominated the continuous-batching gap, VERDICT r2
-    weak #7).  prompts (K, T0), slots (K,) int32.  Duplicate slot entries
+    by bucket, so K prompts cost one dispatch instead of K).  prompts
+    (K, T0), slots (K,) int32.  Duplicate slot entries
     (group padding) are benign: duplicates carry identical rows.
     Returns (last-row logits (K, V), caches)."""
     k_caches, v_caches = caches
@@ -692,7 +626,7 @@ def prefill_into_slots(params: Dict, prompts: jax.Array, caches, slots,
 # static: decode gathers each slot's pages (B, MAX_PP, PAGE, C) and masks by
 # position, so XLA compiles one program for every occupancy pattern.
 
-PAGE = 16                   # tokens per page (multiple of 8 for sublanes)
+PAGE = 16                   # tokens per page
 
 
 def init_paged_kv(cfg: ViTConfig, n_pages: int):
@@ -803,9 +737,8 @@ def decode_ticks_multi(params: Dict, tokens: jax.Array, caches, pos,
                        keys: jax.Array, temps: jax.Array, cfg: ViTConfig,
                        top_k: int, top_p: float = 0.0):
     """N decode ticks for all slots in ONE device program (lax.scan), with
-    on-device sampling — one host sync per chunk instead of per token,
-    which is the difference between ~80 and ~4000 tok/s on a
-    network-attached TPU (serving_gen.GenerationEngine chunked mode).
+    on-device sampling — one host sync per chunk instead of per token
+    (serving_gen.GenerationEngine chunked mode).
 
     temps (B,) per-slot temperature; 0 = greedy.  top_k static (engine-wide
     in chunked mode).  Returns (tokens (N, B), caches, final pos).

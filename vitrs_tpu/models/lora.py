@@ -6,15 +6,15 @@ freezes the base weights and learns a rank-r update  W' = W + (α/r)·B·A
 per target matrix, cutting optimizer state and checkpoint size by ~100×
 and letting one base model serve many adapted heads.
 
-TPU-first shape choices:
+Shape choices:
   * adapters are stacked on the leading L axis like every canonical tensor
     (params.py), so ONE einsum per target produces all layers' deltas and
     the merged weights feed the existing `lax.scan` block unchanged;
   * the merge (B·A, an (L, OC, r)×(L, r, IC) batched matmul with r ≤ 64)
     is recomputed every step rather than kept as a separate serving path —
     at r=8 on GPT-2 124M it is <0.1% of step FLOPs, and merging preserves
-    every downstream optimization (fused qkv+attention VJP, flash kernels,
-    selective remat) with zero extra code;
+    every downstream optimization (fused attention, selective remat) with
+    zero extra code;
   * gradients flow to the adapters THROUGH the merge by differentiating
     w.r.t. the adapter tree only — the base tree is a closed-over constant,
     so XLA never materializes base-weight gradients or optimizer state.

@@ -3,13 +3,13 @@
 Mirrors the float forward orchestration (models/model.py — the reference's
 `ViT::forward`, rusty_vit.rs:269-351) with every matmul routed through the
 quantized linears.  Activations stay bf16/f32: LayerNorm, GELU, residuals,
-softmax and the flash-attention kernel are untouched, so the numerical
+softmax and the attention op are untouched, so the numerical
 delta vs the float model is exactly the weight-rounding (w8) or
 weight+activation-rounding (w8a8) error, which the tests bound.
 
-Weight-only (`w8a8=False`) halves weight HBM reads — for bandwidth-bound
-generation.  Dynamic w8a8 runs the MXU at int8 rate (measured 250 TOP/s vs
-152.7 TF/s bf16 on v5e) — for compute-bound batch serving.
+Weight-only (`w8a8=False`) halves weight memory reads — for bandwidth-bound
+generation.  Dynamic w8a8 runs the matmuls in int8 with int32 accumulation
+— for compute-bound batch serving.
 """
 
 from __future__ import annotations

@@ -1,38 +1,21 @@
-"""Selective activation rematerialization — hand-written per-branch VJPs.
+"""Selective activation rematerialization.
 
-The round-2 big-model path wrapped the whole block in a blanket
-`jax.checkpoint(body)`, which recomputes EVERYTHING in backward — including
-flash attention, the single most expensive thing to redo (GPT-2 774M measured
-44.3% MFU; ViT-L remat cost 24%).  The reference's own stash choice is the
-blueprint for what to keep instead: it saves the attention probabilities and
-the LN statistics (att at rusty_vit.rs:157-158, mean/rstd at
-rusty_vit.rs:601-602) and recomputes nothing else.  The TPU translation of
-that policy is exactly what these two custom-VJP branches implement:
+A blanket `jax.checkpoint(body)` recomputes EVERYTHING in backward.  The
+reference's own stash choice is the blueprint for what to keep instead: it
+saves the attention output and the LN statistics (att at
+rusty_vit.rs:157-158, mean/rstd at rusty_vit.rs:601-602) and recomputes the
+rest.  The two branches here implement that policy:
 
-  saved per layer:   block input x, attention out + per-row lse (the flash
-                     stash), LN mean/rstd for both norms, residual2
-  recomputed in bwd: ln1/ln2 normalization (VPU-only, from saved stats),
-                     the qkv projection matmul, fch + GELU
+  attention branch: `jax.checkpoint` with a policy that saves only the
+                    attention output and the LN statistics; the backward
+                    recomputes ln1, the qkv projection and the attention
+                    forward (whose softmax statistics the attention
+                    backward needs)
+  MLP branch:       a hand-written VJP that saves (x, mean, rstd) and
+                    recomputes ln2, fch and GELU
 
-so the backward never reruns the flash kernel, and the per-layer activation
-footprint drops from ~15 (B,T,C)-equivalents (plain path) to ~3 + lse.
-
-A note on WHY this is hand-written rather than `jax.checkpoint` with a
-`save_only_these_names` policy: the flash kernel is a `jax.custom_vjp`, and
-policy-saved values cannot short-circuit a custom_vjp's forward rule during
-the remat replay — the replay must rerun the rule to obtain its residuals,
-i.e. rerun the Pallas forward.  Owning the VJP of each branch lets the
-backward consume the saved (out, lse) directly.
-
-lse is stashed in its compact (B, H, T, 1) form — the kernels' native
-(B, H, T, 128) lane-broadcast layout costs as much HBM as FOUR bf16 (B,T,C)
-tensors at D=64; the backward re-broadcasts before the kernel call (the
-kernels only ever read lane 0).
-
-Fallback: when Pallas is unavailable (CPU tests) or the geometry cannot be
-tiled even with phantom-head padding, the branches fall back to a pure-jnp
-dense implementation whose backward is obtained by replaying `jax.vjp` —
-full recompute, correct everywhere, used only off-TPU.
+so the per-layer activation footprint drops from ~15 (B,T,C)-equivalents
+(plain path) to ~3.
 """
 
 from __future__ import annotations
@@ -41,19 +24,21 @@ import functools
 
 import jax
 import jax.numpy as jnp
+from jax.ad_checkpoint import checkpoint_name
 
 from ..config import ViTConfig
 from ..ops import basic
-from ..ops import flash_attention as FA
-from ..ops import flash_attention_gqa as FG
-from ..ops.attention import _flash_available
+from ..ops.attention import attention, expand_packed
 
 ATTN_KEYS = ("ln1w", "ln1b", "qkvw", "qkvb", "attprojw", "attprojb")
 MLP_KEYS = ("ln2w", "ln2b", "fcw", "fcb", "fcprojw", "fcprojb")
 
+_ATTN_SAVED = jax.checkpoint_policies.save_only_these_names(
+    "attn_out", "ln_stats")
+
 
 def _norm_from_stats(x, w, b, mean, rstd):
-    """Recompute the LN output from saved fp32 statistics (one VPU pass)."""
+    """Recompute the LN output from saved fp32 statistics (one pass)."""
     xf = x.astype(jnp.float32)
     out = (xf - mean[..., None]) * rstd[..., None] * w.astype(jnp.float32) \
         + b.astype(jnp.float32)
@@ -61,18 +46,12 @@ def _norm_from_stats(x, w, b, mean, rstd):
 
 
 # ---------------------------------------------------------------------------
-# attention branch: x -> attproj(flash(qkv_proj(ln1(x))))
+# attention branch: x -> attproj(attention(qkv_proj(ln1(x))))
 # ---------------------------------------------------------------------------
-
-def _expand_packed(qkv, num_heads, kv_heads):
-    """(B, T, C + 2*kv_dim) GQA projection -> packed MHA (B, T, 3C)."""
-    from ..ops.attention import expand_packed
-    return expand_packed(qkv, num_heads, kv_heads)
-
 
 def _attn_ref(x, ln1w, ln1b, qkvw, qkvb, attprojw, attprojb, num_heads,
               causal, kv_heads=0, rope=False, window=0):
-    """Dense pure-jnp branch (fallback path + gradient oracle in tests)."""
+    """Dense pure-jnp branch (the gradient oracle in tests)."""
     ln1, _, _ = basic.layernorm(x, ln1w, ln1b)
     qkv = basic.linear(ln1, qkvw, qkvb)
     if rope:
@@ -81,195 +60,38 @@ def _attn_ref(x, ln1w, ln1b, qkvw, qkvb, attprojw, attprojb, num_heads,
         q, k, v = split_gqa(qkv, num_heads, kv_heads or num_heads)
         q, k = rope_qk(q, k, jnp.arange(x.shape[1]), num_heads, kv_heads)
         qkv = jnp.concatenate([q, k, v], axis=-1)
-    if kv_heads and kv_heads != num_heads:
-        qkv = _expand_packed(qkv, num_heads, kv_heads)
+    qkv = expand_packed(qkv, num_heads, kv_heads)
     out, _ = basic.attention_dense(qkv, num_heads, causal=causal,
                                    window=window)
     return basic.linear(out, attprojw, attprojb)
 
 
-def _use_flash(num_heads, head_dim):
-    return (_flash_available()
-            and FA.padded_num_heads(num_heads, head_dim) is not None)
-
-
-def _native_gqa(num_heads, kv_heads, head_dim):
-    """Whether the GQA-native kernel family serves this geometry (K/V at
-    kv width in kernel — no expansion to recompute in backward)."""
-    return (bool(kv_heads) and kv_heads != num_heads
-            and FG.supports_gqa(num_heads, kv_heads, head_dim))
-
-
-@functools.partial(jax.custom_vjp,
-                   nondiff_argnums=(7, 8, 9, 10, 11, 12, 13))
-def attn_branch(x, ln1w, ln1b, qkvw, qkvb, attprojw, attprojb,
-                num_heads, causal, interpret=False, allow_flash=True,
-                kv_heads=0, rope=False, window=0):
-    """The pre-LN attention residual branch with lean saved state.
-    allow_flash=False (cfg.use_flash) forces the dense-jnp path even where
-    the Pallas kernels are available — the same contract as
-    model._project_and_attend.  kv_heads (0 = MHA) selects GQA/MQA: the
-    projection is C + 2*kv_dim wide and K/V are expanded to the full head
-    count before the kernel (the expansion is recomputed in backward — it
-    is free relative to the matmuls, and the saved out+lse stay (B,T,C)).
-    rope=True rotates q/k INSIDE the flash kernels (streamed-table path;
-    dq/dk come back inverse-rotated from the kernel epilogues); the dense
-    fallback rotates post-projection."""
-    out, _ = _attn_branch_fwd(x, ln1w, ln1b, qkvw, qkvb, attprojw, attprojb,
-                              num_heads, causal, interpret, allow_flash,
-                              kv_heads, rope, window)
-    return out
-
-
-def _packed_qkv(ln1, qkvw, qkvb, num_heads, kv_heads, H, D):
-    """Recomputable projection: returns padded packed (B, T, 3·H·D).
-    MHA pads at the WEIGHT level (phantom rows come straight off the MXU);
-    GQA projects with the raw (C+2kv_dim, C) weight, expands K/V on the
-    activations, then pads each third (flash_attention_qkv's own trick).
-    rope needs no handling here: rotation lives INSIDE the flash kernels
-    (streamed-table path), so the recomputed projection stays unrotated."""
-    C = num_heads * D
-    Cp = H * D
-    if not kv_heads or kv_heads == num_heads:
-        w_run, b_run = FA.pad_qkv_weight(qkvw, qkvb, num_heads, H, D)
-        qkv = basic.linear(ln1, w_run, b_run)
-    else:
-        qkv = _expand_packed(basic.linear(ln1, qkvw, qkvb), num_heads,
-                             kv_heads)
-        if Cp != C:
-            B, T = qkv.shape[:2]
-            pad = jnp.zeros((B, T, Cp - C), qkv.dtype)
-            qkv = jnp.concatenate(
-                [t for i in range(3)
-                 for t in (qkv[:, :, i * C:(i + 1) * C], pad)], axis=-1)
-    return qkv
-
-
-def _attn_branch_fwd(x, ln1w, ln1b, qkvw, qkvb, attprojw, attprojb,
-                     num_heads, causal, interpret, allow_flash=True,
-                     kv_heads=0, rope=False, window=0):
-    C = x.shape[-1]
-    D = C // num_heads
-    if not (interpret or (allow_flash and _use_flash(num_heads, D))):
-        branch = _attn_ref(x, ln1w, ln1b, qkvw, qkvb, attprojw, attprojb,
-                           num_heads, causal, kv_heads, rope, window)
-        # ref-path residuals: the 7 inputs (arity distinguishes the two
-        # residual forms in the backward — strings are not JAX types)
-        return branch, (x, ln1w, ln1b, qkvw, qkvb, attprojw, attprojb)
+def _attn_body(x, ln1w, ln1b, qkvw, qkvb, attprojw, attprojb, *,
+               num_heads, causal, allow_flash, kv_heads, rope, window):
     _, mean, rstd = basic.layernorm(x, ln1w, ln1b)
+    mean = checkpoint_name(mean, "ln_stats")
+    rstd = checkpoint_name(rstd, "ln_stats")
     ln1 = _norm_from_stats(x, ln1w, ln1b, mean, rstd)
-    H = FA.padded_num_heads(num_heads, D)
-    T = x.shape[1]
-    sm_scale = 1.0 / (D ** 0.5)
-    if _native_gqa(num_heads, kv_heads, D):
-        # GQA-native kernels: small projection, K/V at kv width in kernel
-        # (ops/flash_attention_gqa.py) — no activation expansion to
-        # recompute in backward either.  rope rotates INSIDE the kernels
-        # (streamed-table path, ops/flash_attention._rope_table): the
-        # projection emits unrotated activations and the grads come back
-        # unrotated, so the recompute is rotation-free too
-        qkv = FG.project_gqa_packed(ln1, qkvw, qkvb, num_heads, kv_heads,
-                                    D, rope=False)
-        bq0, bk0 = FG.gqa_blocks(num_heads, kv_heads, D)
-        qkv_k, bq, bk = FA.prep_blocks(qkv, bq0, bk0)
-        out, lse = FG._fwd(qkv_k, num_heads, kv_heads, D, sm_scale, causal,
-                           T, bq, bk, interpret, window, rope=rope)
-    else:
-        qkv = _packed_qkv(ln1, qkvw, qkvb, num_heads, kv_heads, H, D)
-        qkv_k, bq, bk = FA.prep_blocks(qkv, FA.DEFAULT_BLOCK_Q,
-                                       FA.DEFAULT_BLOCK_K)
-        out, lse = FA._fwd(qkv_k, H, sm_scale, causal, T, bq, bk, interpret,
-                           window, rope=rope)
-    atty = out[:, :T, :C]
-    branch = basic.linear(atty, attprojw, attprojb)
-    res = (x, ln1w, ln1b, qkvw, qkvb, attprojw, mean, rstd,
-           out, lse[..., :1])
-    return branch, res
+    qkv = basic.linear(ln1, qkvw, qkvb)
+    atty = attention(qkv, num_heads, causal=causal, use_flash=allow_flash,
+                     window=window, rope=rope, kv_heads=kv_heads)
+    atty = checkpoint_name(atty, "attn_out")
+    return basic.linear(atty, attprojw, attprojb)
 
 
-def _attn_branch_bwd(num_heads, causal, interpret, allow_flash, kv_heads,
-                     rope, window, res, db):
-    if len(res) == 7:
-        _, vjp = jax.vjp(functools.partial(_attn_ref, num_heads=num_heads,
-                                           causal=causal, kv_heads=kv_heads,
-                                           rope=rope, window=window), *res)
-        return vjp(db)
-    x, ln1w, ln1b, qkvw, qkvb, attprojw, mean, rstd, out, lse_c = res
-    # static geometry reconstructed from shapes (T = true length, H = padded
-    # head count, block sizes from the same deterministic prep)
-    T = x.shape[1]
-    C = x.shape[-1]
-    D = C // num_heads
-    H = FA.padded_num_heads(num_heads, D)
-    Cp = H * D
-    T_pad, sm_scale = out.shape[1], 1.0 / (D ** 0.5)
-    native = _native_gqa(num_heads, kv_heads, D)
-
-    # recompute ln1 and the (padded) packed qkv — the only matmul redone
-    ln1 = _norm_from_stats(x, ln1w, ln1b, mean, rstd)
-    if native:
-        qkv = FG.project_gqa_packed(ln1, qkvw, qkvb, num_heads, kv_heads,
-                                    D, rope=False)
-        bq0, bk0 = FG.gqa_blocks(num_heads, kv_heads, D)
-        qkv_k, bq, bk = FA.prep_blocks(qkv, bq0, bk0)
-    else:
-        qkv = _packed_qkv(ln1, qkvw, qkvb, num_heads, kv_heads, H, D)
-        qkv_k, bq, bk = FA.prep_blocks(qkv, FA.DEFAULT_BLOCK_Q,
-                                       FA.DEFAULT_BLOCK_K)
-    assert qkv_k.shape[1] == T_pad, (qkv_k.shape, T_pad)
-
-    # attproj backward (out holds atty: its [:T, :C] view)
-    atty = out[:, :T, :C]
-    df = db.astype(jnp.float32)
-    datty = basic.linear(db, attprojw.T)
-    dattprojw = jax.lax.dot_general(
-        df.reshape(-1, C), atty.reshape(-1, C).astype(jnp.float32),
-        (((0,), (0,)), ((), ()))).astype(attprojw.dtype)
-    dattprojb = jnp.sum(df, axis=tuple(range(db.ndim - 1))
-                        ).astype(attprojw.dtype)
-
-    # flash backward from the saved (out, lse) — no kernel re-run
-    do = datty
-    if Cp != C:
-        do = jnp.pad(do, ((0, 0), (0, 0), (0, Cp - C)))
-    if T_pad != T:
-        do = jnp.pad(do, ((0, 0), (0, T_pad - T), (0, 0)))
-    lse = jnp.broadcast_to(lse_c, lse_c.shape[:3] + (FA.LANES,))
-    if native:
-        dq, dk, dv = FG._bwd_parts(qkv_k, num_heads, kv_heads, D, out, lse,
-                                   do, sm_scale, causal, T, bq, bk,
-                                   interpret, window, rope=rope)
-        kvd = kv_heads * D
-        dq = dq[:, :T, :C]
-        dk, dv = dk[:, :T, :kvd], dv[:, :T, :kvd]
-        from ..ops.fused_qkv_attention import qkv_projection_bwd
-        dln1, dqkvw, dqkvb = qkv_projection_bwd(dq, dk, dv, ln1, qkvw)
-        dx, dln1w, dln1b = basic.layernorm_bwd_from_stats(
-            x, ln1w, mean, rstd, dln1)
-        return dx, dln1w, dln1b, dqkvw, dqkvb, dattprojw, dattprojb
-    dq, dk, dv = FA._bwd_parts(qkv_k, H, out, lse, do, sm_scale, causal,
-                               T, bq, bk, interpret, window, rope=rope)
-    dq, dk, dv = (g[:, :T, :C] for g in (dq, dk, dv))
-    if kv_heads and kv_heads != num_heads:
-        # GQA: the expansion's transpose — sum each query group's dk/dv
-        # back onto its shared KV head
-        B = x.shape[0]
-        G = num_heads // kv_heads
-        dk = dk.reshape(B, T, kv_heads, G, D).sum(axis=3).reshape(
-            B, T, kv_heads * D)
-        dv = dv.reshape(B, T, kv_heads, G, D).sum(axis=3).reshape(
-            B, T, kv_heads * D)
-
-    # projection backward: shared decomposition with the fused op
-    from ..ops.fused_qkv_attention import qkv_projection_bwd
-    dln1, dqkvw, dqkvb = qkv_projection_bwd(dq, dk, dv, ln1, qkvw)
-
-    dx, dln1w, dln1b = basic.layernorm_bwd_from_stats(x, ln1w, mean, rstd,
-                                                      dln1)
-    return dx, dln1w, dln1b, dqkvw, dqkvb, dattprojw, dattprojb
-
-
-attn_branch.defvjp(_attn_branch_fwd, _attn_branch_bwd)
+def attn_branch(x, ln1w, ln1b, qkvw, qkvb, attprojw, attprojb,
+                num_heads, causal, allow_flash=True, kv_heads=0,
+                rope=False, window=0):
+    """The pre-LN attention residual branch with lean saved state.
+    allow_flash=False (cfg.use_flash) takes the dense reference attention —
+    the same contract as model._project_and_attend.  kv_heads (0 = MHA)
+    selects GQA/MQA (a C + 2*kv_dim wide projection); rope rotates q/k
+    inside the attention op."""
+    body = functools.partial(_attn_body, num_heads=num_heads, causal=causal,
+                             allow_flash=allow_flash, kv_heads=kv_heads,
+                             rope=rope, window=window)
+    return jax.checkpoint(body, policy=_ATTN_SAVED)(
+        x, ln1w, ln1b, qkvw, qkvb, attprojw, attprojb)
 
 
 # ---------------------------------------------------------------------------
@@ -342,8 +164,8 @@ mlp_branch.defvjp(_mlp_branch_fwd, _mlp_branch_bwd)
 def block_moe_selective(x, p, cfg: ViTConfig, causal: bool, ep_axis=None,
                         ep: int = 1):
     """MoE block under the selective policy: the attention residual uses
-    the lean custom-VJP branch (flash out+lse+LN stats saved, no kernel
-    re-run in backward); the MoE half is wrapped in `jax.checkpoint` — its
+    the lean branch (attention output + LN stats saved); the MoE half is
+    wrapped in `jax.checkpoint` — its
     dispatch buffers and expert activations (the E·cap·4C hidden, ~10
     (B,T,C)-equivalents per layer at top-2/1.25x) are recomputed in
     backward instead of stashed.  Returns (x, weighted_aux) like
@@ -353,7 +175,7 @@ def block_moe_selective(x, p, cfg: ViTConfig, causal: bool, ep_axis=None,
     with jax.named_scope("attn"):
         a = attn_branch(x, p["ln1w"], p["ln1b"], p["qkvw"], p["qkvb"],
                         p["attprojw"], p["attprojb"], cfg.num_heads, causal,
-                        False, cfg.use_flash, cfg.kv_heads,
+                        cfg.use_flash, cfg.kv_heads,
                         cfg.pos_emb == "rope", cfg.window)
         if dp:
             a = _drop_path(a, p["_dp_key"][0], p["_dp_rate"])
@@ -389,7 +211,7 @@ def block_selective(x, p, cfg: ViTConfig, causal: bool):
     with jax.named_scope("attn"):
         a = attn_branch(x, p["ln1w"], p["ln1b"], p["qkvw"], p["qkvb"],
                         p["attprojw"], p["attprojb"], cfg.num_heads, causal,
-                        False, cfg.use_flash, cfg.kv_heads,
+                        cfg.use_flash, cfg.kv_heads,
                         cfg.pos_emb == "rope", cfg.window)
         if dp:
             a = _drop_path(a, p["_dp_key"][0], p["_dp_rate"])

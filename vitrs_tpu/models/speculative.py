@@ -8,7 +8,7 @@ so the expensive model runs once per ~(accepted+1) tokens instead of once
 per token.  Output is EXACTLY the target model's (greedy: bitwise; sampled:
 the Leviathan et al. 2023 rejection rule preserves the target distribution).
 
-TPU-native cache management: there is NO rollback machinery.  Both KV
+Cache management: there is NO rollback machinery.  Both KV
 caches are position-masked (attention reads rows <= pos, the same contract
 the serving engine's padded prefill relies on, models/generate.py), and the
 iteration structure guarantees every stale row written by a rejected draft

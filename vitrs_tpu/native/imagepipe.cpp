@@ -1,9 +1,9 @@
 // Host-side image decode/augment pipeline (native component).
 //
 // The reference's only host-side native work is arena I/O and scalar loops
-// (SURVEY.md §2 native-component accounting); the TPU rebuild needs a real
-// feeder: the TPU consumes batches faster than Python can crop/flip/normalize
-// them, so the augment path is C++ with a pthread pool, called from Python
+// (SURVEY.md §2 native-component accounting); the rebuild needs a real
+// feeder: the device consumes batches faster than Python can crop/flip/
+// normalize them, so the augment path is C++ with a pthread pool, called from Python
 // via ctypes on plain buffers (no Python objects touched off-GIL).
 //
 // Determinism contract: every sample's augmentation randomness derives from

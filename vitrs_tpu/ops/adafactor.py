@@ -2,7 +2,7 @@
 
 The reference's optimizer story is SGD with dormant AdamW moments
 (train_vit.rs:73-74, gap G7); this framework ships fused AdamW as the
-production default (ops/fused_adamw.py).  Adafactor is the TPU-era
+production default (ops/optimizer.py).  Adafactor is the
 alternative for when the OPTIMIZER STATE is the memory wall: instead of a
 full second moment v (one fp32 copy of every parameter), matrix-shaped
 parameters keep only per-row and per-column EMAs of g² — O(n+m) instead of

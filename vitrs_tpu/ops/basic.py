@@ -1,9 +1,9 @@
-"""Core JAX ops — the TPU-native re-design of the reference's L1 kernel layer.
+"""Core JAX ops — the re-design of the reference's L1 kernel layer.
 
 The reference implements these as scalar raw-pointer loops
-(/root/reference/rusty_vit.rs:460-854).  Here each op is a pure function on
-jax.Arrays; XLA fuses the elementwise work into the surrounding matmuls and the
-matmuls tile onto the MXU.  Where the reference stashes tensors for its
+(rusty_vit.rs:460-854).  Here each op is a pure function on jax.Arrays; XLA
+fuses the elementwise work into the surrounding matmuls and hands the matmuls
+to the tensor cores.  Where the reference stashes tensors for its
 hand-written backward (LN mean/rstd, attention att), we expose the same values
 so the parity tests can compare intermediates, but the production training path
 just uses jax.grad and lets XLA pick what to keep.
@@ -163,8 +163,8 @@ gelu_erf_cv.defvjp(_gelu_erf_cv_fwd, _gelu_erf_cv_bwd)
 
 def linear(x: jax.Array, w: jax.Array, b: Optional[jax.Array] = None) -> jax.Array:
     """y = x @ W.T (+ b), W stored (OC, C) row-major — the reference matmul
-    convention (rusty_vit.rs:484-498).  dot_general keeps the contraction on
-    the MXU with an fp32 accumulator regardless of input dtype."""
+    convention (rusty_vit.rs:484-498).  dot_general accumulates in fp32
+    regardless of input dtype."""
     y = jax.lax.dot_general(
         x, w.astype(x.dtype),
         dimension_numbers=(((x.ndim - 1,), (1,)), ((), ())),
@@ -189,8 +189,8 @@ def attention_dense(qkv: jax.Array, num_heads: int, causal: bool = True,
 
     The XLA analogue of rusty_vit.rs:512-563: Q|K|V packed along channels at
     offsets h*hs, h*hs+C, h*hs+2C — i.e. splitting into (B,T,NH,HS) per third.
-    Used for parity tests and as the CPU fallback; the production TPU path is
-    the Pallas flash kernel in ops/flash_attention.py.
+    This is the reference path (parity tests, quirks mode, use_flash=False);
+    the production path is ops/attention.fused_attention.
 
     quirks=True reproduces G5 (diagonal left unnormalized) and G11 (-1e4 max
     init).  Returns (out, att) where att is the stashed score matrix the
@@ -253,6 +253,28 @@ def cross_entropy_from_logits(logits: jax.Array, targets: jax.Array) -> jax.Arra
     return logz - picked
 
 
+# The weight-tied head is padded to a multiple of 128 rows (llm.c's
+# padded_vocab_size: 50257 -> 50304); the vocab-parallel layouts shard it
+# evenly over the padded rows.
+VOCAB_PAD = 128
+NEG_INF = -1e30
+
+
+def pad_vocab(v: int) -> int:
+    """Next multiple of VOCAB_PAD (50257 -> 50304)."""
+    return -(-v // VOCAB_PAD) * VOCAB_PAD
+
+
+def cross_entropy_padded(logits: jax.Array, targets: jax.Array,
+                         real_vocab: int) -> jax.Array:
+    """CE over logits whose trailing axis is padded past `real_vocab`: the
+    pad columns are masked out of the logsumexp (and so get zero gradient),
+    which makes the loss equal to the unpadded CE over the real columns."""
+    col = jnp.arange(logits.shape[-1])
+    logits = jnp.where(col < real_vocab, logits.astype(jnp.float32), NEG_INF)
+    return cross_entropy_from_logits(logits, targets)
+
+
 def cross_entropy_smoothed(logits: jax.Array, targets: jax.Array,
                            smoothing: float = 0.1) -> jax.Array:
     """Label-smoothed CE: (1-s)·CE(target) + s·mean-over-classes CE — the
@@ -275,7 +297,7 @@ def patchify(images: jax.Array, patch: int) -> jax.Array:
 
     This is the 'patchify-as-strided-matmul' seam (BASELINE.json north star):
     the data movement is layout-only, and the following `linear` with the
-    (C, P*P*C) patch-embed weight is one big MXU matmul.  It fills the
+    (C, P*P*C) patch-embed weight is one big matmul.  It fills the
     reference's undefined `encoder_forward` (gap G2, rusty_vit.rs:282) with
     vision semantics; its backward is the transposed matmul, not a scatter.
     """

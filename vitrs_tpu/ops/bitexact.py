@@ -17,8 +17,8 @@ op is correctly rounded — hence bit-identical to NumPy.  Transcendentals come
 from bitmath.py (shared polynomial exp/tanh/cosh) for the same reason.
 
 Tiny-scale tool by design (python loops over reduction dims, eager dispatch);
-the production path (models/model.py) keeps XLA fusion and the Pallas
-kernels.  quirks G5/G6/G11/G15 are reproduced as written, like the oracle.
+the production path (models/model.py) keeps XLA fusion and the fused
+attention op.  quirks G5/G6/G11/G15 are reproduced as written, like the oracle.
 """
 
 from __future__ import annotations

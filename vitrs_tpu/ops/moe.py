@@ -6,7 +6,7 @@ rusty_vit.rs:326-328); MoE is the beyond-reference scaling axis: L layers of
 E experts each, only top_k of which run per token, so parameter count grows
 ~E× while per-token FLOPs stay ~top_k× the dense MLP.
 
-TPU-first design (everything is static-shaped and jit-traceable):
+Design (everything is static-shaped and jit-traceable):
 
   * routing:   one (S, E) fp32 router matmul + `lax.top_k`; the per-expert
                slot assignment is a cumulative-sum over a one-hot assignment
@@ -17,7 +17,7 @@ TPU-first design (everything is static-shaped and jit-traceable):
                exactly the Switch/GShard static-capacity contract.
   * experts:   ONE batched dot_general over the stacked (E, 4C, C) /
                (E, C, 4C) expert weights — E independent matmuls become a
-               single MXU-friendly batched contraction, fp32-accumulated
+               single batched contraction, fp32-accumulated
                like every other matmul in the framework (ops/basic.linear).
   * combine:   a gather back to token order (`jnp.take(..., mode='fill')`)
                weighted by the renormalized top-k router probabilities,
@@ -70,8 +70,8 @@ class MoEAux(NamedTuple):
 
 def capacity(num_tokens: int, num_experts: int, top_k: int,
              cap_factor: float) -> int:
-    """Static per-expert slot count: ceil(S·K/E · factor), rounded up to the
-    TPU sublane multiple (8) so the (E, cap, C) dispatch buffer tiles."""
+    """Static per-expert slot count: ceil(S·K/E · factor), rounded up to a
+    multiple of 8 rows for the (E, cap, C) dispatch buffer."""
     import math
     cap = math.ceil(num_tokens * top_k * cap_factor / num_experts)
     cap = max(cap, 8)
@@ -138,8 +138,8 @@ def router(x_flat: jax.Array, routerw: jax.Array, top_k: int,
 #                  dw[k, s]   = <dout[s], ys[dst[k, s]]>      gather at dst
 #
 # The previous formulation scattered (S, C) rows into the slot buffer
-# (`.at[dst].set`), whose transpose is a scatter-add — the op class XLA:TPU
-# lowers sequentially and whose per-layer graph dominated MoE compile time
+# (`.at[dst].set`), whose transpose is a scatter-add — an op class whose
+# per-layer graph dominated MoE compile time
 # (measured on the CPU backend at 8 layers: row-scatter dispatch chain 142 s
 # vs 74 s for the index form; the router cumsum itself compiles in ~1 s).
 # Here the only scatter left anywhere is the (K·S,)-int32 build of inv.
@@ -239,7 +239,7 @@ def _expert_ffn(xe: jax.Array, fcw: jax.Array, fcb: jax.Array,
                 fcprojw: jax.Array, fcprojb: jax.Array,
                 erf: bool, tp_axis=None) -> jax.Array:
     """Batched expert MLP: (E, cap, C) → (E, cap, C) in two batched
-    dot_generals (E is a batch dim → one MXU pass per matmul, not E).
+    dot_generals (E is a batch dim → one batched matmul, not E).
 
     tp_axis: Megatron tensor parallelism INSIDE each expert — fcw/fcb
     arrive column-sharded on 4C (local (E_loc, 4C/tp, C)), fcprojw
@@ -283,7 +283,7 @@ def moe_mlp(x: jax.Array, routerw: jax.Array, fcw: jax.Array, fcb: jax.Array,
     which the E axis of the expert weights is sharded (fcw et al. arrive as
     the LOCAL (E/ep, ...) shard; routerw stays replicated — it is tiny and
     every token must score every expert).  The dispatch buffer makes one
-    `all_to_all` hop out over ICI — each device sends the slots bound for
+    `all_to_all` hop out — each device sends the slots bound for
     other devices' experts and receives every ep-peer's slots for its own —
     and one hop home after the expert FFN.  Per-device expert FLOPs and
     weight memory scale 1/ep; the wire cost is 2·(E·cap·C)/ep per device,

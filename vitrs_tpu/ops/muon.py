@@ -7,8 +7,8 @@ speedrun records: for each 2-D weight it replaces the elementwise Adam
 update with the nearest-orthogonal matrix of the momentum buffer,
 approximated by a quintic Newton-Schulz iteration.
 
-Why it is a natural TPU optimizer: the NS iteration is FIVE batched
-matmuls per weight per step — pure MXU work in bf16 (the iteration is
+Why it suits a matmul machine: the NS iteration is FIVE batched matmuls
+per weight per step — pure tensor-core work in bf16 (the iteration is
 stable in bf16 by construction; Jordan runs it in bf16 on GPUs).  On the
 stacked (L, OC, IC) parameter layout (params.py) the whole depth
 orthogonalizes as ONE batched matmul chain, no per-layer dispatch.

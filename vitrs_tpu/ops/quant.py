@@ -4,25 +4,22 @@ Two execution modes, chosen by what bounds the workload:
 
   * weight-only (`linear_w8`): weights stored int8 + per-out-channel f32
     scale, dequantized to the activation dtype *inside* the matmul operand
-    fusion (XLA folds `wq * scale` into the MXU read).  Halves weight HBM
-    traffic vs bf16 — the lever for bandwidth-bound workloads (KV-cache
-    generation reads every weight once per token: GPT-2 124M spends
-    ~248 MB/step on weights, BASELINE.md).  MXU math stays bf16, so
-    accuracy loss is just the int8 weight rounding.
+    fusion (XLA folds `wq * scale` into the operand read).  Halves weight
+    memory traffic vs bf16 — the lever for bandwidth-bound workloads
+    (KV-cache generation reads every weight once per token).  The matmul
+    stays bf16, so accuracy loss is just the int8 weight rounding.
 
   * dynamic w8a8 (`linear_w8a8`): per-token (row) symmetric activation
-    quantization + int8 x int8 MXU with int32 accumulation.  The v5e MXU
-    runs int8 at 2x bf16 rate — measured 250 TOP/s on the model-shaped
-    chain vs the 152.7 TF/s bf16 ceiling (1.64x) — the lever for
-    compute-bound batch serving.
+    quantization + int8 x int8 matmul with int32 accumulation — the lever
+    for compute-bound batch serving where int8 runs faster than bf16.
 
 Both use symmetric per-out-channel scales (scale = amax/127, no zero
-point): TPU MXU has no asymmetric-accumulate path, and transformer weight
-distributions are near-symmetric so the zero point buys little.
+point): transformer weight distributions are near-symmetric, so a zero
+point buys little.
 
 The reference has no quantization (its serving story is f32 `forward` with
 targets absent, rusty_vit.rs:269-350); this subsystem extends the serving
-surface the TPU-native way.
+surface.
 """
 
 from __future__ import annotations
@@ -65,10 +62,10 @@ def linear_w8(x: jax.Array, wq: jax.Array, scale: jax.Array,
 
 def linear_w8a8(x: jax.Array, wq: jax.Array, scale: jax.Array,
                 b: Optional[jax.Array] = None) -> jax.Array:
-    """Dynamic-activation int8 linear: per-row symmetric x quant, int8 MXU.
+    """Dynamic-activation int8 linear: per-row symmetric x quant, int8 matmul.
 
     y[r, o] = (sum_c xq[r, c] * wq[o, c]) * ax[r] * scale[o]  (+ b[o])
-    with int32 accumulation on the MXU.
+    with int32 accumulation.
     """
     xf = x.astype(jnp.float32)
     ax = jnp.max(jnp.abs(xf), axis=-1, keepdims=True)

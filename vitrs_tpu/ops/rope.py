@@ -8,14 +8,11 @@ scores a function of RELATIVE distance:
 
     q'_t = R(θ·t) q_t,   k'_s = R(θ·s) k_s   =>   q'_t · k'_s = f(q, k, t−s)
 
-TPU shape notes: the rotation is a pure VPU elementwise pass fused by XLA
-into the surrounding projection matmul's epilogue; the half-split pairing
-(dims [0, D/2) with [D/2, D) — the GPT-NeoX/Llama convention) keeps the
-lane layout contiguous, unlike interleaved even/odd pairing which would
-relayout lanes.  The flash kernels are untouched: rotation happens on the
-packed activations before the kernel, and its VJP transpose is the inverse
-rotation (R is orthogonal), applied to dq/dk in hand-written backwards
-(models/selective.py).
+The rotation is an elementwise pass that XLA fuses with its neighbours; the
+half-split pairing (dims [0, D/2) with [D/2, D) — the GPT-NeoX/Llama
+convention) keeps each half contiguous.  It is applied to q/k before the
+attention op (ops/attention.py), and its VJP is the inverse rotation
+(R is orthogonal), which autodiff derives.
 
 config.pos_emb="rope" selects this path; the wpe table is kept in the
 parameter set (the canonical 16-tensor checkpoint layout is never
@@ -45,17 +42,7 @@ def apply_rope(x: jax.Array, pos: jax.Array, num_heads: int,
                base: float = DEFAULT_BASE, inverse: bool = False) -> jax.Array:
     """Rotate packed heads: x (B, T, H·D).  pos: scalar, (T,) sequence
     positions, (B, 1) per-example start (decode slots), or full (B, T).
-    inverse=True applies R(−θ) — the transpose, used by hand-written VJPs
-    to pull dq/dk back through the rotation.
-
-    Kept in the (B, T, H, 2, half) PAIRWISE form: the "lane-friendly"
-    full-width alternative (x·cosF + x[pair]·sinF with a static lane
-    permutation, or a reshape+concat half-swap) measured SLOWER on v5e —
-    0.68/0.65 vs 0.42 ms per (32, 1024, 768) application (amortized,
-    24-deep fori chain) — the lane shuffle/concat relayouts cost more than
-    the 32-wide sublane views here.  Do not retry blindly; the remaining
-    rope lever is rotating inside the flash kernel epilogue (tiles already
-    in VMEM)."""
+    inverse=True applies R(−θ) — the transpose."""
     B, T, C = x.shape
     D = C // num_heads
     half = D // 2

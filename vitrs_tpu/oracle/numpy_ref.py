@@ -1,7 +1,7 @@
 """NumPy parity oracle — reference-as-written semantics.
 
 This module re-implements the math of /root/reference exactly as written, in
-NumPy, to serve as the ground truth the TPU framework is validated against
+NumPy, to serve as the ground truth the framework is validated against
 (SURVEY.md §7 stage 1).  It is NOT part of the production path.
 
 `quirks=True` reproduces the reference's literal behavior:

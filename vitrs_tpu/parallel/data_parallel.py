@@ -1,18 +1,18 @@
-"""Data parallelism over an ICI mesh — shard_map + reduce-scatter + ZeRO-1.
+"""Data parallelism over a device mesh — shard_map + reduce-scatter + ZeRO-1.
 
 The reference is entirely single-threaded (SURVEY.md §2 rows 26-27: no
 threads/MPI/NCCL anywhere); its only parallelism is the batch dimension of its
-scalar loops.  The TPU-native scale-out story (SURVEY.md §5.8, the north-star
+scalar loops.  The scale-out story here (SURVEY.md §5.8, the north-star
 requirement) is:
 
-  * mesh: one "data" axis over all chips (`jax.make_mesh`), batch sharded;
-  * gradient combine: `lax.psum_scatter` (reduce-scatter) over ICI — each
+  * mesh: one "data" axis over all cards, batch sharded;
+  * gradient combine: `lax.psum_scatter` (reduce-scatter) — each
     device receives only its 1/N slice of the summed flat gradient;
   * ZeRO-1: AdamW moments m/v live sharded (1/N per device); each device
-    updates its parameter shard with the fused kernel, then `all_gather`s the
-    updated parameters — reduce-scatter + all-gather back-to-back is the
-    bandwidth-optimal decomposition of the naive all-reduce, and the optimizer
-    state never materializes unsharded;
+    updates its parameter shard (ops/optimizer.adamw_step), then
+    `all_gather`s the updated parameters — reduce-scatter + all-gather
+    back-to-back is the bandwidth-optimal decomposition of the naive
+    all-reduce, and the optimizer state never materializes unsharded;
   * multi-host: the same program under `jax.distributed.initialize` (the mesh
     spans all processes; nothing else changes).
 """
@@ -34,8 +34,7 @@ from ..ops import optimizer as opt
 
 
 def make_mesh(n_devices: int = 0, devices=None) -> Mesh:
-    """1-D data-parallel mesh. On a physical slice the device order follows
-    the ICI torus (jax.make_mesh picks a bandwidth-aware ordering)."""
+    """1-D data-parallel mesh over the first n_devices devices (0 = all)."""
     if devices is None:
         devices = jax.devices()
         if n_devices:
@@ -90,9 +89,8 @@ def make_dp_train_step(cfg: ViTConfig, mesh: Mesh, accum_steps: int = 1,
     use_mixup = mixup_alpha > 0.0 and cfg.mode == "vit"
 
     # normalize = (mean, std) enables device-side input normalization: the
-    # loader ships uint8 (4x less H2D traffic — decisive over a network
-    # relay and for multi-host input), and (x/255 - mean)/std folds into the
-    # first XLA fusion on device.  float inputs pass through untouched.
+    # loader ships uint8 (4x less H2D traffic), and (x/255 - mean)/std
+    # folds into the first XLA fusion on device.  float inputs pass through untouched.
     if normalize is not None:
         _nmean = jnp.asarray(normalize[0], jnp.float32)
         _ninv = jnp.asarray(1.0 / normalize[1], jnp.float32)

@@ -1,4 +1,4 @@
-"""Expert parallelism — MoE expert shards over an ICI mesh axis.
+"""Expert parallelism — MoE expert shards over a mesh axis.
 
 The reference is single-threaded and dense (SURVEY.md §2 rows 26-27); MoE
 (ops/moe.py) is the beyond-reference sparse-scaling axis, and this module is
@@ -11,7 +11,7 @@ its scale-out story:
   * inside the jitted step the MoE layer makes one `all_to_all` hop out over
     the "expert" axis (each device ships the capacity slots bound for peers'
     experts and receives every peer's slots for its own) and one hop home —
-    the GShard dispatch pattern, riding ICI;
+    the GShard dispatch pattern;
   * routing itself (the (S, E) router matmul + top-k + slot cumsum) stays
     local to each device — only the dispatched activations move;
   * gradients: `jax.grad` differentiates straight through the all_to_all
@@ -46,7 +46,7 @@ from jax.experimental.shard_map import shard_map
 
 from ..config import ViTConfig
 from ..models import model as M
-from ..ops import optimizer as opt
+from ..ops import basic, optimizer as opt
 
 # parameter leaves carrying a (L, E, ...) expert axis (params.param_shapes)
 EXPERT_KEYS = ("fcw", "fcb", "fcprojw", "fcprojb")
@@ -330,7 +330,6 @@ def init_ep_tp_opt_state(ep_tp_params, cfg: ViTConfig, mesh: Mesh,
 
 def _ep_tp_block(x, bp, cfg: ViTConfig, ep: int):
     """TP attention half + EP x TP MoE half; returns (x, weighted_aux)."""
-    from ..ops import basic
     from ..ops.moe import moe_mlp
     from . import tensor_parallel as TPmod
     with jax.named_scope("attn_ep_tp"):
@@ -359,7 +358,6 @@ def _ep_tp_block(x, bp, cfg: ViTConfig, ep: int):
 
 def _ep_tp_loss(p, tokens, targets, cfg: ViTConfig, ep: int,
                 vocab_parallel: bool = False):
-    from ..ops import basic
     from . import tensor_parallel as TPmod
     dtype = jnp.dtype(cfg.dtype)
     if vocab_parallel:
@@ -408,8 +406,7 @@ def make_ep_tp_train_step(cfg: ViTConfig, mesh: Mesh,
     if cfg.is_gqa:
         assert cfg.kv_heads % tp == 0, (cfg.kv_heads, tp)
     if vocab_parallel:
-        from ..ops import fused_ce
-        assert fused_ce.pad_vocab(cfg.vocab_size) % tp == 0
+        assert basic.pad_vocab(cfg.vocab_size) % tp == 0
     specs = ep_tp_param_specs(cfg, vocab_parallel)
     n_cells = mesh.shape["data"] * ep
 
@@ -508,8 +505,7 @@ def make_ep_tp_train_step_adafactor(cfg: ViTConfig, mesh: Mesh,
     if cfg.is_gqa:
         assert cfg.kv_heads % tp == 0, (cfg.kv_heads, tp)
     if vocab_parallel:
-        from ..ops import fused_ce
-        assert fused_ce.pad_vocab(cfg.vocab_size) % tp == 0
+        assert basic.pad_vocab(cfg.vocab_size) % tp == 0
     specs = ep_tp_param_specs(cfg, vocab_parallel)
     n_cells = mesh.shape["data"] * ep
     gshapes = ep_tp_global_shapes(cfg, vocab_parallel)

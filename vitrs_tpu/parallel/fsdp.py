@@ -1,7 +1,7 @@
 """Fully-sharded data parallelism (FSDP / ZeRO-3) — GSPMD-native.
 
 The reference has no distributed story at all (SURVEY.md §2 rows 26-27);
-this module is the TPU-native form of the FSDP family: parameters AND
+this module is the GSPMD form of the FSDP family: parameters AND
 optimizer state live sharded across the mesh at rest, and XLA's GSPMD
 partitioner inserts the all-gathers (param use), reduce-scatters (gradient
 combine) and the sharded optimizer update from sharding annotations alone —
@@ -48,10 +48,10 @@ def make_mesh(n_devices: int = 0, devices=None) -> Mesh:
 
 
 def make_hybrid_mesh(replica: int, shard: int, devices=None) -> Mesh:
-    """The standard pod deployment: FSDP *inside* an ICI domain ("fsdp"
-    axis, where the per-use all-gathers are cheap) × plain DP *across*
-    domains ("replica" axis, which only carries the once-per-step gradient
-    all-reduce).  Params/state shard over "fsdp" only and replicate over
+    """The standard cluster deployment: FSDP *inside* a fast-link domain
+    ("fsdp" axis — the cards of one host, where the per-use all-gathers
+    are cheap) × plain DP *across* domains ("replica" axis, which only
+    carries the once-per-step gradient all-reduce).  Params/state shard over "fsdp" only and replicate over
     "replica"; the batch shards over both axes (every device is a data
     worker).  The step factories below are axis-count-agnostic — GSPMD
     reads the same annotations and adds the replica-axis grad all-reduce

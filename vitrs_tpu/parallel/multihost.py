@@ -16,7 +16,7 @@ def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None, **kw) -> None:
     """Idempotent jax.distributed bring-up.  With no arguments, relies on the
-    cluster environment (TPU pod metadata / JAX_COORDINATOR_ADDRESS).
+    cluster environment (JAX_COORDINATOR_ADDRESS or a cluster scheduler).
     Extra kwargs (e.g. initialization_timeout=) pass through."""
     if jax.distributed.is_initialized():
         return  # already initialized

@@ -6,7 +6,7 @@ parallelism axis after data (data_parallel.py) and tensor (tensor_parallel.py).
 Design: the stacked (L, ...) block parameters are sliced over the pipe axis
 (L/S layers per stage).  Both schedules run as a `lax.scan` of synchronous
 ticks inside shard_map; activations hop to the next stage via `ppermute`
-(neighbor-only, rides ICI).  Works for BOTH model families: vit mode
+(neighbor-only).  Works for BOTH model families: vit mode
 (patch-embed encode, classifier head) and gpt mode (token encode, weight-tied
 vocab head, per-token CE — the reference's own model, rusty_vit.rs:336).
 

@@ -1,12 +1,12 @@
-"""Ring attention — TRAINABLE context parallelism over an ICI ring.
+"""Ring attention — TRAINABLE context parallelism over a device ring.
 
 The reference has no long-context story at all (SURVEY.md §5.7: it
 materializes full O(T²) buffers and is capped by the wpe table).  This module
 shards the sequence over a mesh axis: KV shards rotate around the ring via
-`jax.lax.ppermute` (neighbor-only point-to-point — rides ICI at full
-bisection bandwidth) while each device accumulates its queries' attention
-over every block with the same online-softmax statistics the flash kernel
-uses on-chip.  After N-1 hops every query has seen every key.
+`jax.lax.ppermute` (neighbor-only point-to-point) while each device
+accumulates its queries' attention over every block with online-softmax
+statistics, as a flash-attention kernel does within one device.  After N-1
+hops every query has seen every key.
 
 Round 2 shipped the forward only; the backward here is the second ring pass
 (VERDICT r2 next-step #3): each device recomputes its tiles' probabilities
@@ -44,7 +44,7 @@ def _block_attend(q, k, v, m, l, acc, q_off, k_off, sm_scale, causal,
     """One online-softmax accumulation step against a rotated KV block.
     q: (B,H,Tq,D); k/v: (B,H,Tk,D); m/l: (B,H,Tq,1); acc: (B,H,Tq,D).
     window > 0 (causal only): query t sees keys in (t-window, t], the same
-    band the flash kernels predicate on (basic.attention_dense:212-215)."""
+    band as basic.attention_dense."""
     s = jnp.einsum("bhqd,bhkd->bhqk", q, k,
                    preferred_element_type=jnp.float32) * sm_scale
     if causal:
@@ -86,7 +86,7 @@ def _ring_fwd_scan(q, k, v, axis, n, causal, window=0):
     """Returns (out, lse) for the local query shard.
 
     k/v may carry FEWER heads than q (GQA: (B, KH, Tk, D) with KH | H) —
-    only the small blocks rotate on the ring (ICI traffic / group size) and
+    only the small blocks rotate on the ring (link traffic / group size) and
     each step expands its resident block to full heads locally, which is
     numerically identical to expanding before the ring.  window > 0 runs
     the BANDED ring: only _ring_hops(...) neighbor blocks circulate."""
@@ -202,7 +202,7 @@ def _ring_local_bwd(axis, n, causal, window, res, do):
         step, (k, v, dk0, dv0, dq), jnp.arange(h))
     if h < n:
         # banded ring stopped early: dk/dv sit h steps past home — one
-        # direct ppermute returns them (h-1 ICI hops of distance, but a
+        # direct ppermute returns them (h-1 hops of distance, but a
         # single collective, not n-h rotations)
         home = [(i, (i - h) % n) for i in range(n)]
         dk = jax.lax.ppermute(dk, axis, home)

@@ -1,9 +1,9 @@
 """Tensor parallelism (Megatron-style) over a 2-D (data, model) mesh.
 
 Beyond the reference's capability set (SURVEY.md §2 row 26 marks TP as out of
-scope for parity) — provided as the scale-out path for models past one chip's
-HBM.  The classic column/row-parallel decomposition, written with shard_map
-so every collective is explicit and rides ICI:
+scope for parity) — provided as the scale-out path for models past one card's
+memory.  The classic column/row-parallel decomposition, written with shard_map
+so every collective is explicit:
 
   attn:  qkv  = x · Wqkv_colᵀ      heads sharded over "model" (column)
          out  = psum(atty · Wproj_rowᵀ)                        (row)
@@ -93,7 +93,7 @@ reduce_out.defvjp(_reduce_out_fwd, _reduce_out_bwd)
 # dim on the model axis: LayerNorm/residual compute and memory drop by 1/tp,
 # and the psum of the row-parallel matmuls becomes reduce-scatter while the
 # column-parallel input gather becomes all-gather — the same total collective
-# volume as plain TP (RS + AG = all-reduce), less redundant VPU work.
+# volume as plain TP (RS + AG = all-reduce), less redundant elementwise work.
 
 def _ag(x, axis):
     g = jax.lax.all_gather(x, axis, axis=0, tiled=False)   # (tp, B, Ts, ...)
@@ -201,8 +201,8 @@ def _tp_qkv(ln1, p, cfg: ViTConfig):
     head-aligned thirds of qkv3w.  GQA: separate qw/kw/vw leaves, each
     column-sharded on its own head dim; each device owns WHOLE query groups
     (tp | kv_heads and head blocks are contiguous), so the K/V expansion is
-    shard-local.  rope is applied by M.attention (in-kernel on the flash
-    path) — the rotation is identical per head, so the shard's contiguous
+    shard-local.  rope is applied by M.attention — the rotation is
+    identical per head, so the shard's contiguous
     head slice rotates exactly like the full tensor, and it commutes with
     the K/V group expansion (ln1 carries the FULL sequence in both TP
     variants: plain TP is replicated on T; SP gathers before the
@@ -253,7 +253,7 @@ def _tp_sp_block(x_s, p, cfg: ViTConfig, causal: bool, axis: str, tp: int):
 # ~1/6 of forward FLOPs and the (B, T, V) logits are the largest activation
 # in the program (3.07 GB at B=32 — the top allocation in the OOM report
 # that motivated this).  Vocab parallelism shards the weight-tied wte table
-# over the PADDED vocab rows (fused_ce.pad_vocab → Vp % tp == 0), so each
+# over the PADDED vocab rows (basic.pad_vocab → Vp % tp == 0), so each
 # device computes only its (B, T, Vp/tp) logits slice and the full softmax
 # statistics are assembled from two scalar-field collectives:
 #
@@ -362,13 +362,12 @@ def to_tp_params(params, cfg: ViTConfig, vocab_parallel: bool = False):
     GQA: the packed projection splits into separate qw/kw/vw leaves, each
     column-sharded on its own (different-sized) head dimension.
     vocab_parallel pads wte to (pad_vocab(V), C) so the model axis slices
-    even lane-aligned vocab-row shards."""
+    even vocab-row shards."""
     out = dict(params)
     L, C = cfg.num_layers, cfg.channels
     if vocab_parallel:
-        from ..ops import fused_ce
         V = cfg.vocab_size
-        Vp = fused_ce.pad_vocab(V)
+        Vp = basic.pad_vocab(V)
         out["wte"] = jnp.pad(params["wte"], ((0, Vp - V), (0, 0)))
     if cfg.is_gqa:
         kvd = cfg.kv_dim
@@ -499,9 +498,8 @@ def make_tp_train_step(cfg: ViTConfig, mesh: Mesh,
             f"GQA under TP needs kv_heads ({cfg.kv_heads}) divisible by the "
             f"model-axis size ({tp_size}) so each shard owns whole groups")
     if vocab_parallel:
-        from ..ops import fused_ce
         assert cfg.mode == "gpt", "vocab parallelism is the gpt head/CE path"
-        Vp = fused_ce.pad_vocab(cfg.vocab_size)
+        Vp = basic.pad_vocab(cfg.vocab_size)
         assert Vp % tp_size == 0, (Vp, tp_size)
 
     from . import gradops
@@ -592,9 +590,8 @@ def tp_global_shapes(cfg: ViTConfig, vocab_parallel: bool = False):
     gshapes = {k: jax.ShapeDtypeStruct(s, jnp.float32)
                for k, s in shapes.items()}
     if vocab_parallel:
-        from ..ops import fused_ce
         gshapes["wte"] = jax.ShapeDtypeStruct(
-            (fused_ce.pad_vocab(cfg.vocab_size), C), jnp.float32)
+            (basic.pad_vocab(cfg.vocab_size), C), jnp.float32)
     if cfg.is_gqa:
         kvd = cfg.kv_dim
         gshapes["qw"] = jax.ShapeDtypeStruct((L, C, C), jnp.float32)
@@ -649,9 +646,8 @@ def make_tp_train_step_adafactor(cfg: ViTConfig, mesh: Mesh,
     if cfg.is_gqa:
         assert cfg.kv_heads % tp_size == 0, (cfg.kv_heads, tp_size)
     if vocab_parallel:
-        from ..ops import fused_ce
         assert cfg.mode == "gpt", "vocab parallelism is the gpt head/CE path"
-        assert fused_ce.pad_vocab(cfg.vocab_size) % tp_size == 0
+        assert basic.pad_vocab(cfg.vocab_size) % tp_size == 0
 
     gshapes = tp_global_shapes(cfg, vocab_parallel)
     mf = min_factor or AF.MIN_FACTOR

@@ -175,9 +175,8 @@ def make_3d_train_step(cfg: ViTConfig, mesh: Mesh, microbatches: int,
             f"GQA under TP needs kv_heads ({cfg.kv_heads}) divisible by "
             f"the model-axis size ({tp_size})")
     if vocab_parallel:
-        from ..ops import fused_ce
         assert cfg.mode == "gpt", "vocab parallelism is the gpt head/CE path"
-        assert fused_ce.pad_vocab(cfg.vocab_size) % tp_size == 0
+        assert basic.pad_vocab(cfg.vocab_size) % tp_size == 0
     specs = param_specs_3d(cfg, vocab_parallel)
     # leaves computed on one pipe stage only (embeddings/head/final-LN):
     # true grad = sum of per-stage partials — everything with no "pipe"
@@ -319,9 +318,8 @@ def make_3d_train_step_adafactor(cfg: ViTConfig, mesh: Mesh,
     if cfg.is_gqa:
         assert cfg.kv_heads % tp_size == 0
     if vocab_parallel:
-        from ..ops import fused_ce
         assert cfg.mode == "gpt"
-        assert fused_ce.pad_vocab(cfg.vocab_size) % tp_size == 0
+        assert basic.pad_vocab(cfg.vocab_size) % tp_size == 0
     from .pipeline import _af_specs_with_fac
     specs = param_specs_3d(cfg, vocab_parallel)
     pipe_partial = [k for k, s in specs.items()

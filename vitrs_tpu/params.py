@@ -4,7 +4,7 @@ The reference keeps 16 parameter tensors in a fixed canonical order inside one f
 f32 arena (/root/reference/rusty_vit.rs:105-148, train_vit.rs:115-162).  We keep the
 same canonical order and sizes — it defines the checkpoint payload layout (§2.1 of
 SURVEY.md) — but hold the live parameters as a pytree of `jax.Array`s shaped for the
-TPU compute path:
+compute path:
 
   * per-layer tensors are stacked on a leading L axis (exactly the reference's
     "per-layer slabs stacked along the leading dim", rusty_vit.rs:292-303), which is

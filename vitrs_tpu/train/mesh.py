@@ -33,7 +33,7 @@ Families (combinable per row, validated in make_plan):
   dp,cp                     ring-attention context parallelism —
                             parallel/ring_attention.py
   fsdp=N[,dp=M]             ZeRO-3 GSPMD sharding; dp>1 = the hybrid pod
-                            deployment (FSDP inside an ICI domain x DP
+                            deployment (FSDP inside a host x DP
                             across domains) — parallel/fsdp.py
 """
 
@@ -702,7 +702,7 @@ def _fsdp_plan(cfg, spec, optimizer, devices, weight_decay=0.0,
     from ..parallel import fsdp as FS
     from .. import params as PRM
     if spec.dp > 1:
-        # hybrid: FSDP inside an ICI domain x DP across domains
+        # hybrid: FSDP inside a host x DP across hosts
         mesh = FS.make_hybrid_mesh(spec.dp, spec.fsdp, devices)
     else:
         mesh = FS.make_mesh(spec.fsdp, devices)

@@ -1,4 +1,4 @@
-"""Numerical-safety tooling — the TPU-native equivalent of sanitizers
+"""Numerical-safety tooling — the JAX equivalent of sanitizers
 (SURVEY.md §5.2): JAX's pure-functional model rules out data races by
 construction; what remains is NaN/Inf detection and guarded train steps.
 

@@ -4,22 +4,30 @@ attention terms)."""
 
 from __future__ import annotations
 
+from typing import Optional
+
 from ..config import ViTConfig
 
-# per-chip peak dense-matmul throughput, FLOP/s
+# Per-card peak dense matmul throughput, FLOP/s, keyed by the exact
+# `jax.Device.device_kind`.  Source: NVIDIA H100 SXM data sheet, dense rates
+# without sparsity, at the 700 W limit: 989 TFLOP/s bf16/fp16 and 495
+# TFLOP/s TF32 (what XLA runs fp32 matmuls in at default precision).
 PEAK_FLOPS = {
-    "tpu v5e": {"bfloat16": 197e12, "float32": 49e12},
-    "tpu v5p": {"bfloat16": 459e12, "float32": 115e12},
-    "cpu": {"bfloat16": 1e12, "float32": 1e12},
+    "NVIDIA H100 80GB HBM3": {"bfloat16": 989e12, "float16": 989e12,
+                              "float32": 495e12},
 }
 
 
-def peak_flops(device_kind: str, dtype: str) -> float:
-    kind = device_kind.lower()
-    for key, tbl in PEAK_FLOPS.items():
-        if key.split()[-1] in kind:      # match "v5e"/"v5p"/"cpu"
-            return tbl.get(dtype, tbl["float32"])
-    return 197e12 if dtype == "bfloat16" else 49e12
+def peak_flops(device_kind: str, dtype: str) -> Optional[float]:
+    """Peak FLOP/s of one card.  None on the CPU, which has no peak in this
+    table (MFU is not reported there); an accelerator missing from the
+    table is an error, never a default."""
+    if device_kind.lower() == "cpu":
+        return None
+    if device_kind not in PEAK_FLOPS:
+        raise KeyError(f"no peak FLOP/s for device kind {device_kind!r}; "
+                       f"add it to utils/flops.PEAK_FLOPS with its source")
+    return PEAK_FLOPS[device_kind][dtype]
 
 
 def forward_flops_per_example(cfg: ViTConfig) -> float:
@@ -57,7 +65,10 @@ def train_flops_per_example(cfg: ViTConfig) -> float:
 
 
 def mfu(examples_per_sec: float, cfg: ViTConfig, device_kind: str,
-        n_chips: int = 1, train: bool = True) -> float:
+        n_chips: int = 1, train: bool = True) -> Optional[float]:
+    """Model FLOP/s utilization; None where the device has no peak (CPU)."""
+    peak = peak_flops(device_kind, cfg.dtype)
+    if peak is None:
+        return None
     f = train_flops_per_example(cfg) if train else forward_flops_per_example(cfg)
-    achieved = examples_per_sec * f
-    return achieved / (peak_flops(device_kind, cfg.dtype) * n_chips)
+    return examples_per_sec * f / (peak * n_chips)
